@@ -1,0 +1,432 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``paintmind_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line(s); any failure raises and the script
+exits non-zero with no result line:
+
+  1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+  2. builds kernels K1-K3 from the sources in this checkout (one ``nvcc``
+     per CUDA source, all at once; the Triton kernel by its first launch);
+  3. holds each kernel against its plain PyTorch version at the main
+     path's shapes, and times kernel, plain version and (where one exists)
+     the PyTorch library call, beside the least time the card could take;
+  4. stage 1: the shipped vit-s-vqgan weights reconstruct 8 seeded 256²
+     images through the kernels and through the plain versions;
+  5. stage 2: a full-width paintmindv1 pipeline (seeded random stage-2
+     weights, bf16) runs a 16-step ``generate`` at B = 8, the same with
+     classifier-free guidance, and an ``inpaint``; the launch counters must
+     show each kernel on that path, at the expected counts;
+  6. one ``{"kernels": [...]}`` line, then the last line
+     ``{"ok": true, "device": {...}}``.
+
+Needs one CUDA card; exits non-zero when there is none.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from PIL import Image
+
+import paintmind_tpu_torch as pt
+from paintmind_tpu_torch.models import quantize as tq
+from paintmind_tpu_torch.models.pipeline import ids_to_tokens, _transformer_logits
+from paintmind_tpu_torch.ops import _build
+from paintmind_tpu_torch.ops import flash_attention as fa
+from paintmind_tpu_torch.ops import sampling as sm
+from paintmind_tpu_torch.ops import vq_lookup as vq
+from paintmind_tpu_torch.utils.checkpoint import load_flat
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ASSET = os.path.join(ROOT, 'paintmind_tpu', 'assets', 'vit_vq_photo.npz')
+
+# H100 SXM data sheet, dense: HBM bytes/s, bf16 tensor-core and fp32
+# (CUDA-core) operations/s.  Rated at a 700 W power limit.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+KERNEL_MODULES = {'K1': fa, 'K2': vq, 'K3': sm}
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def reset_counts():
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def median_ms(fn, iters):
+    """Median milliseconds of ``iters`` calls, each timed alone with CUDA
+    events, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def time_ms(fn, iters):
+    """Mean milliseconds per call over ``iters`` calls, CUDA events, after
+    two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, ops, dtype):
+    """Least time (ms) for the work: bytes over the memory rate or
+    operations over the peak rate for the inputs' type, the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_k1(g):
+    """Stage-2 self (H = 16, M = 1024), cross (M = 77) and VQGAN (H = 8)
+    attention at B = 8, fp32 and bf16.  Times the main path's most frequent
+    call: stage-2 self-attention in bf16."""
+    scale = 64 ** -0.5
+    entry = None
+    for label, m, h in (('stage-2 self', 1024, 16), ('stage-2 cross', 77, 16),
+                        ('vqgan self', 1024, 8)):
+        for dtype in (torch.float32, torch.bfloat16):
+            b, n, d = 8, 1024, 64
+            q = torch.randn(b, n, h, d, device='cuda', generator=g).to(dtype)
+            k = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
+            v = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
+            out = fa.flash_attention(q, k, v, scale)
+            ref = fa.flash_attention_plain(q, k, v, scale)
+            err = (out.float() - ref.float()).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            if dtype == torch.float32:
+                check(max_err <= 1e-4, f'K1 {label} fp32 max err {max_err}')
+            else:
+                check(mean_err <= 5e-3, f'K1 {label} bf16 mean err {mean_err}')
+            ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), 10)
+            plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale), 5)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=scale), 10)
+            nbytes = (2 * b * n * h * d + 2 * b * m * h * d) * q.element_size()
+            bms, by = bound(nbytes, 4 * b * h * n * m * d, dtype)
+            log(f'K1 {label} B={b} N={n} M={m} H={h} D={d} {str(dtype)[6:]}: '
+                f'max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} '
+                f'ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} '
+                f'bound_ms={bms:.4f} ({by})')
+            if label == 'stage-2 self' and dtype == torch.bfloat16:
+                entry = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            del q, k, v, out, ref, err
+    return entry
+
+
+def check_k2(g):
+    """T = 8·1024 l2-normalised queries against the shipped 8192 x 32
+    codebook.  Indices equal, except at near-ties (score gap < 1e-5)."""
+    codebook = load_flat(ASSET)['quantize/codebook'].float().cuda()
+    e = tq.l2norm(codebook).contiguous()
+    z = tq.l2norm(torch.randn(8 * 1024, 32, device='cuda', generator=g))
+    got = vq.fused_nearest_codes(z, e)
+    ref = vq.nearest_codes_plain(z, e)
+    scores = z @ e.t()
+    rows = torch.arange(z.shape[0], device='cuda')
+    gap = (scores[rows, got.long()] - scores[rows, ref.long()]).abs()
+    differ = int((got != ref).sum())
+    max_gap = gap.max().item()
+    check(max_gap < 1e-5, f'K2 disagrees beyond a near-tie: gap {max_gap}')
+    ms = time_ms(lambda: vq.fused_nearest_codes(z, e), 20)
+    plain_ms = time_ms(lambda: vq.nearest_codes_plain(z, e), 20)
+    lib_ms = time_ms(lambda: torch.argmax(z @ e.t(), dim=-1), 20)
+    t, c, d = z.shape[0], e.shape[0], z.shape[1]
+    bms, by = bound((t * d + c * d) * 4 + t * 4, 2 * t * c * d, torch.float32)
+    log(f'K2 T={t} C={c} D={d} fp32: {differ} of {t} ids differ '
+        f'(max score gap {max_gap:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} '
+        f'argmax_matmul_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})')
+    return dict(max_abs_err=max_gap, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+# operations per logit that the sampling function cannot avoid, whatever
+# the algorithm: the row max (1), exp(l - max) and its sum (3), and one
+# compare for the top-k selection (1).  The noise, the temperature and the
+# argmax touch only the k survivors, and conf is one exp per row.
+K3_OPS_PER_LOGIT = 5
+
+
+def check_k3(g):
+    """(8·1024, 8192) logits, top-k 5.  Temperature 1e-10 on distinct fp32
+    logits: pred equal to the plain version, conf within 1e-6.  Temperature
+    1: pred in the exact top-5 set, conf = softmax(logits)[pred] within
+    1e-5 (fp32 and bf16 logits), and over 8192 draws of one row the
+    frequencies match the top-5 softmax within 0.02."""
+    t, v, k = 8 * 1024, 8192, 5
+    # distinct values in every row: a seeded permutation of an even grid
+    grid = torch.arange(v, device='cuda', dtype=torch.float32) * (8.0 / v) - 4
+    logits = grid[torch.rand(t, v, device='cuda', generator=g).argsort(-1)]
+    pred, conf = sm.fused_gumbel_topk_sample(logits, 1e-10, k, generator=g)
+    noise = sm.gumbel_noise(logits.shape, generator=g, device='cuda')
+    rpred, rconf = sm.gumbel_topk_sample_plain(logits, 1e-10, k, noise)
+    check(torch.equal(pred, rpred), 'K3 pred differs at temperature 1e-10')
+    conf_err = (conf - rconf).abs().max().item()
+    check(conf_err <= 1e-6, f'K3 conf err {conf_err} at temperature 1e-10')
+
+    for dtype in (torch.float32, torch.bfloat16):
+        lg = logits.to(dtype)
+        pred, conf = sm.fused_gumbel_topk_sample(lg, 1.0, k, generator=g)
+        keep = sm.topk_keep_mask(lg.float(), k)
+        check(bool(keep.gather(1, pred.long()[:, None]).all()),
+              f'K3 {dtype} sampled outside the top-{k}')
+        want = torch.softmax(lg.float(), -1).gather(1, pred.long()[:, None])[:, 0]
+        err = (conf - want).abs().max().item()
+        check(err <= 1e-5, f'K3 {dtype} conf err {err}')
+
+    row = torch.randn(v, device='cuda', generator=g) - 8
+    row[[11, 900, 4000, 6001, 8191]] = torch.tensor(
+        [2.0, 1.5, 1.0, 0.5, 0.0], device='cuda')
+    draws = row.expand(8192, v).contiguous()
+    pred, _ = sm.fused_gumbel_topk_sample(draws, 1.0, k, generator=g)
+    top = torch.tensor([11, 900, 4000, 6001, 8191], device='cuda')
+    freq = (pred[:, None] == top[None, :]).float().mean(0)
+    want = torch.softmax(row[top], 0)
+    dist_err = (freq - want).abs().max().item()
+    check(bool((pred[:, None] == top[None, :]).any(1).all()),
+          'K3 drew outside the top-5 of the repeated row')
+    check(dist_err <= 0.02, f'K3 frequencies off the top-5 softmax by {dist_err}')
+
+    lb = logits.to(torch.bfloat16)  # the pipeline's logits type
+    noise = noise.to(torch.bfloat16)
+    ms = time_ms(lambda: sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g), 20)
+    plain_ms = time_ms(lambda: sm.gumbel_topk_sample_plain(lb, 1.0, k, noise), 5)
+    nbytes = t * v * lb.element_size() + t * 4 + t * (4 + 4)
+    bms, by = bound(nbytes, t * v * K3_OPS_PER_LOGIT, torch.float32)
+    log(f'K3 T={t} V={v} k={k}: temp 1e-10 conf_err={conf_err:.3e}; temp 1 '
+        f'top-5 softmax frequency err={dist_err:.4f} over 8192 draws; bf16 '
+        f'ms={ms:.4f} plain_ms={plain_ms:.4f} (noise given) '
+        f'bound_ms={bms:.4f} ({by})')
+    return dict(max_abs_err=conf_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the main path
+# ---------------------------------------------------------------------------
+
+def seeded_images(b, size, seed):
+    """Smooth seeded images in [-1, 1], NHWC."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    low = torch.rand(b, 3, 16, 16, device='cuda', generator=g) * 2 - 1
+    img = F.interpolate(low, size=(size, size), mode='bicubic',
+                        align_corners=False).clamp(-1, 1)
+    return img.permute(0, 2, 3, 1).contiguous()
+
+
+def drive(fn, expected, totals, what):
+    """Run one main-path call with the counters at 0; check and add them."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts == expected, f'{what}: launches {counts}, expected {expected}')
+    for name, n in counts.items():
+        totals[name] += n
+    log(f'{what}: {seconds:.3f} s, launches {counts}')
+    return out, seconds
+
+
+def stage1(totals):
+    vqgan = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=ASSET)
+    x = seeded_images(8, 256, 1)
+    enc, dec = vqgan.config.enc.depth, vqgan.config.dec.depth
+    rec, _ = drive(lambda: vqgan.reconstruct(x),
+                   {'K1': enc + dec, 'K2': 1, 'K3': 0}, totals,
+                   'stage 1 reconstruct B=8 256² fp32')
+    _, _, ids = vqgan.encode(x)
+    plain = vqgan.reconstruct(x, backend='plain', vq_backend='plain')
+    _, _, plain_ids = vqgan.encode(x, backend='plain', vq_backend='plain')
+    mae = (rec - plain).abs().mean().item()
+    agree = (ids == plain_ids).float().mean().item()
+    check(torch.isfinite(rec).all() and rec.shape == (8, 256, 256, 3),
+          'stage 1 output')
+    check(agree >= 0.999 and mae <= 1e-3,
+          f'stage 1 kernel vs plain: ids agree {agree}, MAE {mae}')
+    ms = median_ms(lambda: vqgan.reconstruct(x), 5)
+    pil = Image.fromarray(((x[0].cpu().numpy() + 1) * 127.5).astype(np.uint8))
+    fig, _ = drive(lambda: pt.reconstruction(pil, model=vqgan),
+                   {'K1': enc + dec, 'K2': 1, 'K3': 0}, totals,
+                   'stage 1 reconstruction demo (PIL in, figure out)')
+    check(fig.size == (512, 256), f'reconstruction figure {fig.size}')
+    psnr = 10 * np.log10(4.0 / ((rec - x) ** 2).mean().item())
+    log(f'stage 1: kernel vs plain MAE={mae:.3e}, ids agree {agree:.5f}, '
+        f'{ms:.3f} ms per call = {8e3 / ms:.2f} images/s (median of 5 '
+        f'CUDA-event timed calls after a warm-up), PSNR vs input {psnr:.2f} dB')
+
+
+def check_images(imgs, what):
+    check(imgs.shape == (8, 256, 256, 3), f'{what} shape {tuple(imgs.shape)}')
+    check(bool(torch.isfinite(imgs).all()), f'{what} not finite')
+    check(float(imgs.abs().max()) <= 1.0, f'{what} outside [-1, 1]')
+
+
+def stage2(totals):
+    pipe = pt.create_model('pipeline', 'paintmindv1', pretrained=False,
+                           stage1_checkpoint_path=ASSET, text_encoder=None,
+                           compute_dtype=torch.bfloat16)
+    cfg = pipe.config
+    log(f'stage 2: paintmindv1 dim={cfg.dim} depth={cfg.depth} '
+        f'heads={cfg.num_head} vocab={cfg.vqc.n_embed}, '
+        f'{pipe.num_params / 1e6:.1f} M parameters (bf16)')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
+    steps, depth, dec = 16, cfg.depth, cfg.vqc.dec.depth
+    pipe.generate(text=ctx, timesteps=2, topk=5, decode_steps='final',
+                  generator=g)  # warm-up: cuBLAS handles, allocator
+
+    def gen(**kw):
+        return pipe.generate(text=ctx, timesteps=steps, topk=5,
+                             decode_steps='final', generator=g, **kw)[-1]
+
+    imgs, s_plain = drive(gen, {'K1': depth * 2 * steps + dec, 'K2': 0,
+                                'K3': steps}, totals,
+                          'generate B=8 16 steps')
+    check_images(imgs, 'generate')
+    guided, s_cfg = drive(lambda: gen(guidance_scale=3.0),
+                          {'K1': depth * 3 * steps + dec, 'K2': 0,
+                           'K3': steps}, totals,
+                          'generate B=8 16 steps guidance_scale=3.0')
+    check_images(guided, 'guided generate')
+    paint_steps = 4
+    painted, _ = drive(lambda: pipe.inpaint(imgs, (64, 64, 128, 128), text=ctx,
+                                            timesteps=paint_steps,
+                                            generator=g),
+                       {'K1': cfg.vqc.enc.depth + depth * 2 * paint_steps + dec,
+                        'K2': 1, 'K3': paint_steps}, totals,
+                       'inpaint B=8 4 steps')
+    check_images(painted, 'inpaint')
+    log(f'stage 2: {8 / s_plain:.3f} images/s without guidance, '
+        f'{8 / s_cfg:.3f} images/s with guidance (B=8, 16 steps, incl. decode)')
+
+    # the logits of one step through the kernels and through the plain
+    # attention agree to bf16 rounding
+    _, _, ids = pipe.vqgan.encode(imgs)
+    ids[:, ::3] = cfg.mask_token_id
+    tokens = ids_to_tokens(pipe, ids, cfg)
+    with torch.no_grad():
+        lk = _transformer_logits(pipe, tokens, ctx, 3.0, cfg=cfg,
+                                 dtype=torch.bfloat16).float()
+        lp = _transformer_logits(pipe, tokens, ctx, 3.0, cfg=cfg,
+                                 dtype=torch.bfloat16, backend='plain').float()
+    rel = ((lk - lp).abs().mean() / lp.abs().mean()).item()
+    top1 = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    check(rel <= 5e-2, f'stage-2 logits kernel vs plain: mean rel err {rel}')
+    log(f'stage 2 guided logits, kernels vs plain attention: mean rel err '
+        f'{rel:.3e}, argmax agree {top1:.4f}')
+    log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke.py: no CUDA device available', file=sys.stderr)
+        sys.exit(2)
+    t_start = time.perf_counter()
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+    log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
+        f'{torch.cuda.get_device_name(0)}')
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    seconds = _build.build()
+    for name in _build.KERNELS:
+        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
+                if 'registers' in ln]
+        log(f'build {name}: {seconds[name]:.1f} s; {"; ".join(regs)}')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        sm.fused_gumbel_topk_sample(
+            torch.randn(64, 8192, device='cuda', generator=g).to(dtype), 1.0,
+            5, generator=g)
+    torch.cuda.synchronize()
+    log(f'build K1-K3 (nvcc in parallel + Triton first launch): '
+        f'{time.perf_counter() - t0:.1f} s')
+
+    results = {'K1': check_k1(g), 'K2': check_k2(g), 'K3': check_k3(g)}
+    torch.cuda.empty_cache()
+
+    totals = {name: 0 for name in KERNEL_MODULES}
+    stage1(totals)
+    stage2(totals)
+    for name, n in totals.items():
+        check(n > 0, f'{name} never launched on the main path')
+
+    meta = {
+        'K1': ('flash_attention_fwd', 'cuda',
+               'paintmind_tpu_torch/csrc/flash_attention.cu',
+               'paintmind_tpu/ops/flash_attention.py:60'),
+        'K2': ('vq_lookup_fwd', 'cuda', 'paintmind_tpu_torch/csrc/vq_lookup.cu',
+               'paintmind_tpu/ops/vq_lookup.py:81'),
+        'K3': ('fused_gumbel_topk_sample', 'triton',
+               'paintmind_tpu_torch/ops/sampling.py',
+               'paintmind_tpu/ops/sampling.py:136'),
+    }
+    kernels = []
+    for key, (name, route, source, replaces) in meta.items():
+        r = results[key]
+        kernels.append({'name': f'{key} {name}', 'route': route,
+                        'source': source, 'replaces': replaces,
+                        'launches': totals[key],
+                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
+    log(f'total {time.perf_counter() - t_start:.1f} s')
+    log(json.dumps({'kernels': kernels}))
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    main()

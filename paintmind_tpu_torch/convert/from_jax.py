@@ -1,0 +1,66 @@
+"""Weight bridge: the JAX package's flat parameter tree -> the port's modules.
+
+Input is a flat ``{'/'-joined key: array}`` dict: the ``.npz`` layout, and
+what ``paintmind_tpu.utils.checkpoint.flatten_tree`` returns for a live JAX
+tree (the tests pass that in).  Three layout differences are bridged:
+
+  * transformer stacks: every leaf under a ``layers`` node carries a leading
+    ``depth`` axis (one ``lax.scan`` over stacked weights); the port keeps an
+    ``nn.ModuleList``, so leaf ``i`` of that axis goes to ``layers.{i}``;
+  * linear kernels: JAX stores ``kernel`` as (in, out), torch's ``weight``
+    is (out, in);
+  * LayerNorm: JAX ``scale`` / ``bias`` are torch ``weight`` / ``bias``.
+
+Every other leaf (``pos_embed``, ``codebook``, ``mask_token``) keeps its
+name and shape.  Loading is strict: a key the module lacks, or a parameter
+the tree lacks, raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.checkpoint import SEP, to_tensor
+
+
+def to_state_dict(flat):
+    """Flat JAX tree -> torch state_dict (CPU tensors)."""
+    sd = {}
+    for key, value in flat.items():
+        key, value = to_tensor(key, value)
+        parts = key.split(SEP)
+        leaf = parts[-1]
+        if leaf == 'kernel':
+            parts[-1] = 'weight'
+            value = value.transpose(-1, -2)
+        elif leaf == 'scale':
+            parts[-1] = 'weight'
+        if 'layers' in parts[:-1]:
+            at = parts.index('layers') + 1
+            for i in range(value.shape[0]):
+                sd['.'.join(parts[:at] + [str(i)] + parts[at:])] = \
+                    value[i].contiguous()
+        else:
+            sd['.'.join(parts)] = value.contiguous()
+    return sd
+
+
+@torch.no_grad()
+def load_jax_params(module, flat):
+    """Copy a flat JAX parameter tree into ``module`` (in place, keeping
+    the module's device and dtypes).  Every key of the tree must be
+    consumed and every parameter of the module filled."""
+    sd = to_state_dict(flat)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise KeyError(f'parameter tree does not match {type(module).__name__}:'
+                       f' missing {missing[:8]}, unexpected {unexpected[:8]}')
+    for name, value in sd.items():
+        if own[name].shape != value.shape:
+            raise ValueError(f'shape mismatch for {name!r}: tree '
+                             f'{tuple(value.shape)} vs module '
+                             f'{tuple(own[name].shape)}')
+        own[name].copy_(value)
+    return module

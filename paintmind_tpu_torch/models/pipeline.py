@@ -1,0 +1,521 @@
+"""Stage-2 MaskGIT pipeline, inference half (``paintmind_tpu/models/pipeline.py``):
+frozen VQGAN + conditional transformer + iterative parallel decoding.
+
+  * ``generate``: cosine-schedule confidence re-masking (reference
+    generate.py:159-198) as a Python loop of ``sample_step``s, then
+    ``decode_from_indice`` for the steps asked for;
+  * ``paint`` / ``inpaint`` / ``outpaint``: the same loop seeded with a
+    latent keep-mask, with the re-mask clamped to the masked count;
+  * classifier-free guidance ``uncond + s·(cond − uncond)``, mixed on the
+    post-LN hidden states before the shared vocab head; scalar or per-sample
+    (B,) scales and temperatures.
+
+Each step's sampling head is kernel K3 (``ops/sampling``) on the card
+('fused' sampler) and the reference math on the CPU ('exact' sampler).
+Randomness comes from ``torch.Generator``s; the exact sampler also takes
+explicit per-step Gumbel ``noise``, which is how the tests feed it the noise
+the JAX package draws.
+
+Not ported in this slice: the MoE, pipeline-parallel and int8 branches, the
+text towers and the training forward (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Config, ver2cfg
+from ..ops.sampling import fused_gumbel_topk_sample
+from ..ops.sampling import gumbel_noise as _gumbel
+from . import vqmodel as vm
+from .quantize import l2norm
+from .transformer import CondTransformer, CondTransformerConfig
+
+# Conditioning towers the registry's ``t5`` field can name -> context dim.
+CONTEXT_TOWERS = {
+    't5-l': 1024, 't5-xl': 2048, 't5-xxl': 4096,
+    'clip-l': 768, 'clip-l-penultimate': 768,
+    'clip-img-l': 1024,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    stage1: str = 'vit-s-vqgan'
+    t5: str = 't5-l'
+    dim: int = 1024
+    dim_head: int = 64
+    mlp_dim: int = 4096
+    num_head: int = 16
+    depth: int = 12
+    dropout: float = 0.1
+    vqc: vm.VQModelConfig = vm.VQModelConfig()
+    t5_dim: int = 1024
+    normalize_sample_tokens: bool = False
+    num_experts: int = 0  # > 0: the MoE variant, not ported yet
+
+    @classmethod
+    def from_dict(cls, d):
+        d = d if isinstance(d, dict) else d.to_dict()
+        return cls(stage1=d['stage1'], t5=d['t5'], dim=d['dim'],
+                   dim_head=d['dim_head'], mlp_dim=d['mlp_dim'],
+                   num_head=d['num_head'], depth=d['depth'],
+                   dropout=d['dropout'],
+                   vqc=vm.VQModelConfig.from_dict(ver2cfg[d['stage1']]),
+                   t5_dim=CONTEXT_TOWERS[d['t5']],
+                   normalize_sample_tokens=d.get('normalize_sample_tokens',
+                                                 False),
+                   num_experts=d.get('num_experts', 0))
+
+    @property
+    def image_size(self):
+        return self.vqc.enc.image_size
+
+    @property
+    def patch_size(self):
+        return self.vqc.enc.patch_size
+
+    @property
+    def num_tokens(self):
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def mask_token_id(self):
+        return self.vqc.n_embed
+
+    @property
+    def tcfg(self) -> CondTransformerConfig:
+        return CondTransformerConfig(
+            in_dim=self.vqc.embed_dim, dim=self.dim, len_seq=self.num_tokens,
+            dim_head=self.dim_head, mlp_dim=self.mlp_dim,
+            num_head=self.num_head, depth=self.depth, dropout=self.dropout,
+            context_dim=self.t5_dim, num_classes=self.vqc.n_embed)
+
+
+# ---------------------------------------------------------------------------
+# Sampling-path functions
+# ---------------------------------------------------------------------------
+
+def mask_schedule(ratio):
+    return np.cos(math.pi / 2.0 * ratio)  # (reference generate.py:25-26)
+
+
+def ids_to_tokens(pipe, ids, cfg: PipelineConfig):
+    """Gather sampling tokens from [codebook; mask_token]: the **raw**
+    codebook rows (reference generate.py:148-157)."""
+    codebook = pipe.vqgan.quantize.codebook
+    if cfg.normalize_sample_tokens:
+        codebook = l2norm(codebook)
+    table = torch.cat([codebook, pipe.mask_token.to(codebook.dtype)], dim=0)
+    return table[ids.long()]
+
+
+def _topk_filter(logits, k):
+    """Keep the logits >= the k-th largest per position, others -> -inf
+    (reference top_k, generate.py:33-37): ties at the threshold are all
+    kept, so more than k may survive."""
+    thresh = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits >= thresh, logits,
+                       torch.full((), -math.inf, dtype=logits.dtype,
+                                  device=logits.device))
+
+
+def _transformer_logits(pipe, tokens, context, guidance_scale, *, cfg,
+                        backend=None, dtype=None, neg_context=None):
+    if dtype is not None:
+        tokens = tokens.to(dtype)
+        context = context.to(dtype) if context is not None else None
+        neg_context = (neg_context.to(dtype)
+                       if neg_context is not None else None)
+    tr = pipe.transformer
+    if guidance_scale is None or context is None:
+        return tr(tokens, context, backend=backend)
+    b = tokens.shape[0]
+    scale = torch.as_tensor(guidance_scale, device=tokens.device).to(tokens.dtype)
+    if scale.ndim == 1:  # per-sample (B,)
+        scale = scale[:, None, None]
+    both = torch.cat([tokens, tokens], dim=0) if b <= 8 else None
+    if neg_context is not None:
+        # negative-prompt guidance: the unguided branch attends to the
+        # negative caption; one 2B pass while the batch is small
+        if both is not None:
+            hid = tr(both, torch.cat([context, neg_context], dim=0),
+                     backend=backend, return_hidden=True)
+            cond, uncond = hid[:b], hid[b:]
+        else:
+            cond = tr(tokens, context, backend=backend, return_hidden=True)
+            uncond = tr(tokens, neg_context, backend=backend,
+                        return_hidden=True)
+    elif both is not None:
+        # fused CFG: one 2B pass, cross-attention split into its two shapes
+        hid = tr(both, context, backend=backend, cfg_halves=True,
+                 return_hidden=True)
+        cond, uncond = hid[:b], hid[b:]
+    else:
+        cond = tr(tokens, context, backend=backend, return_hidden=True)
+        uncond = tr(tokens, None, backend=backend, return_hidden=True)
+    # guidance is affine and the head is one linear map for both branches,
+    # so mixing the hidden states before it equals mixing the logits
+    return tr.head_project(uncond + scale * (cond - uncond))
+
+
+def sample_step(pipe, ids, *, context, n_masked, temperature, topk,
+                cfg: PipelineConfig, guidance_scale=None, backend=None,
+                dtype=None, sampler='auto', neg_context=None,
+                clamp_remask=False, noise=None, generator=None):
+    """One MaskGIT step (reference Pipeline.sample, generate.py:159-181).
+    Returns (ids_next, pred_ids).
+
+    sampler: 'exact' = the reference math (top-k threshold filter, Gumbel
+    argmax, softmax confidence), with ``noise`` (B, L, V) if given, else
+    Gumbel noise from ``generator``; 'fused' = kernel K3 (one pass over the
+    logits, seeded from ``generator``); 'auto' = fused for CUDA logits,
+    exact for CPU logits."""
+    b, l = ids.shape
+    tokens = ids_to_tokens(pipe, ids, cfg)
+    logits = _transformer_logits(pipe, tokens, context, guidance_scale,
+                                 cfg=cfg, backend=backend, dtype=dtype,
+                                 neg_context=neg_context)
+    if sampler == 'auto':
+        sampler = 'fused' if logits.is_cuda else 'exact'
+    is_mask = ids == cfg.mask_token_id
+    if sampler == 'fused':
+        if noise is not None:
+            raise ValueError('noise is an input of the exact sampler; the '
+                             'fused sampler draws its own from generator')
+        pred_ids, conf = fused_gumbel_topk_sample(logits, temperature, topk,
+                                                  generator=generator)
+        pred_ids = pred_ids.to(ids.dtype)
+    elif sampler == 'exact':
+        filtered = _topk_filter(logits, topk).float()
+        temp = torch.clamp(torch.as_tensor(temperature, dtype=torch.float32,
+                                           device=logits.device), min=1e-10)
+        if temp.ndim == 1:  # per-sample (B,) -> (B, 1, 1)
+            temp = temp[:, None, None]
+        if noise is None:
+            noise = _gumbel(filtered.shape, generator=generator,
+                            device=logits.device)
+        pred_ids = torch.argmax(filtered / temp + noise, dim=-1).to(ids.dtype)
+        probs = torch.softmax(logits.float(), dim=-1)
+        conf = torch.gather(probs, -1, pred_ids.long()[..., None])[..., 0]
+    else:
+        raise ValueError(f"sampler must be 'auto', 'fused' or 'exact', got "
+                         f'{sampler!r}')
+
+    ids_filled = torch.where(is_mask, pred_ids, ids)
+    scores = torch.where(is_mask, 1.0 - conf,
+                         torch.full((), -1e5, device=ids.device))
+    # re-mask the n_masked lowest-confidence masked positions.  The
+    # reference's -1e5 sentinel (not -inf) lets kept tokens be re-masked
+    # when n_masked exceeds the masked count; clamp_remask (the paint path)
+    # clamps it to each sample's masked count instead.
+    if clamp_remask:
+        n_masked = torch.clamp(is_mask.sum(dim=1), max=int(n_masked))
+        n_masked = n_masked.reshape(-1, 1)
+    remask = _remask_by_rank if l <= 2048 else _remask_by_sort
+    return remask(scores, ids_filled, n_masked, cfg.mask_token_id), pred_ids
+
+
+def _remask_by_rank(scores, ids_filled, n_masked, mask_token_id):
+    """Mask the ``n_masked`` highest scores per row (ties: lower index
+    first) by each element's rank, #{j: s_j > s_i} + #{j < i: s_j == s_i}:
+    one all-pairs compare, O(L²), for L <= 2048."""
+    l = scores.shape[1]
+    si = scores[:, :, None]
+    sj = scores[:, None, :]
+    idx = torch.arange(l, device=scores.device)
+    before = idx[None, None, :] < idx[None, :, None]
+    rank = ((sj > si) | ((sj == si) & before)).sum(dim=-1)
+    return torch.where(rank < n_masked,
+                       torch.full((), mask_token_id, dtype=ids_filled.dtype,
+                                  device=ids_filled.device), ids_filled)
+
+
+def _remask_by_sort(scores, ids_filled, n_masked, mask_token_id):
+    """The same re-mask by a stable descending sort (``torch.topk`` does not
+    promise lower-index-first on ties), for L > 2048."""
+    l = scores.shape[1]
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    ranked = torch.gather(ids_filled, 1, order)
+    first = torch.arange(l, device=scores.device)[None, :] < n_masked
+    new = torch.where(first, torch.full((), mask_token_id,
+                                        dtype=ids_filled.dtype,
+                                        device=ids_filled.device), ranked)
+    return ids_filled.scatter(1, order, new)
+
+
+def _schedule_arrays(timesteps, temperature, num_tokens):
+    """Per-step re-mask counts (numpy int32 (T,)) and temperatures (fp32
+    (T,) or, for per-sample (B,) base temperatures, (T, B))."""
+    steps = np.arange(1, timesteps + 1)
+    masked_r = mask_schedule(steps / timesteps)
+    n_masked = np.maximum((masked_r * num_tokens).astype(np.int32), 1)
+    temperature = torch.as_tensor(temperature, dtype=torch.float32)
+    factor = torch.as_tensor(
+        np.asarray(1.0 - (steps - 1) / timesteps, np.float32),
+        device=temperature.device)
+    if temperature.ndim == 0:
+        temps = temperature * factor
+    else:
+        temps = temperature[None, :] * factor[:, None]
+    return n_masked, temps
+
+
+@torch.no_grad()
+def generate_ids(pipe, init_ids, context=None, *, cfg: PipelineConfig,
+                 timesteps=18, temperature=1.0, topk=5, guidance_scale=None,
+                 backend=None, dtype=None, sampler='auto', cfg_warmup=0.0,
+                 neg_context=None, clamp_remask=False, trajectory='merged',
+                 noise=None, generator=None):
+    """The full iterative decode (reference generate.py:183-198).  Returns
+    (final ids, per-step display ids (T, B, L)): ``trajectory='merged'``
+    gives committed tokens plus the current prediction at still-masked
+    slots, ``'preds'`` the raw per-step predictions.
+
+    ``cfg_warmup``: fraction of the early steps that run conditional-only
+    before guidance starts.  ``noise``: per-step Gumbel noise (T, B, L, V)
+    for the exact sampler."""
+    if trajectory not in ('merged', 'preds'):
+        raise ValueError(f"trajectory must be 'merged' or 'preds', "
+                         f'got {trajectory!r}')
+    device = init_ids.device
+    n_masked, temps = _schedule_arrays(timesteps, temperature, cfg.num_tokens)
+    temps = temps.to(device)  # once, not one host copy per step
+    if guidance_scale is not None:
+        guidance_scale = torch.as_tensor(guidance_scale, dtype=torch.float32,
+                                         device=device)
+    warm = 0
+    if guidance_scale is not None and context is not None and cfg_warmup:
+        warm = min(int(round(cfg_warmup * timesteps)), timesteps)
+
+    ids = init_ids
+    shown = []
+    for t in range(timesteps):
+        ids, pred = sample_step(
+            pipe, ids, context=context, n_masked=int(n_masked[t]),
+            temperature=temps[t], topk=topk, cfg=cfg,
+            guidance_scale=None if t < warm else guidance_scale,
+            backend=backend, dtype=dtype, sampler=sampler,
+            neg_context=neg_context, clamp_remask=clamp_remask,
+            noise=None if noise is None else noise[t], generator=generator)
+        if trajectory == 'preds':
+            shown.append(pred)
+        else:
+            shown.append(torch.where(ids == cfg.mask_token_id, pred, ids))
+    return ids, torch.stack(shown)
+
+
+# ---------------------------------------------------------------------------
+# Object API
+# ---------------------------------------------------------------------------
+
+def _not_ported(what, item):
+    return NotImplementedError(f'{what} is not ported to paintmind_tpu_torch '
+                               f'yet (ROADMAP.md, queue A item {item})')
+
+
+class Pipeline(nn.Module):
+    """Frozen VQGAN (``vqgan``) + conditional transformer (``transformer``)
+    + ``mask_token``: the parameter tree of ``paintmind_tpu``'s Pipeline.
+
+    Contexts are precomputed (B, M, t5_dim) embeddings: the text towers
+    are not ported yet.  Always in eval mode."""
+
+    def __init__(self, config=None, stage1_pretrained=True,
+                 stage1_checkpoint_path=None, *, text_encoder='auto', seed=0,
+                 param_dtype=torch.float32, compute_dtype=None, device='cuda'):
+        super().__init__()
+        if config is None:
+            config = Config(ver2cfg['paintmindv1'])
+        self.config = (config if isinstance(config, PipelineConfig)
+                       else PipelineConfig.from_dict(config))
+        cfg = self.config
+        if cfg.num_experts:
+            raise _not_ported('the MoE stage-2 variant', 8)
+        if text_encoder not in ('auto', None):
+            raise _not_ported('a text tower (T5 / CLIP)', 6)
+        device = vm.resolve_device(device)
+        self.compute_dtype = compute_dtype
+
+        from ..factory import create_model
+        self.vqgan = create_model(
+            'vqgan', cfg.stage1, pretrained=stage1_pretrained,
+            checkpoint_path=stage1_checkpoint_path, seed=seed,
+            param_dtype=param_dtype, compute_dtype=compute_dtype,
+            device=device)
+        self.vqgan.freeze()
+        self.transformer = CondTransformer(cfg.tcfg, device=device,
+                                           dtype=param_dtype)
+        self.mask_token = nn.Parameter(torch.empty(
+            1, cfg.vqc.embed_dim, device=device, dtype=param_dtype))
+        g = vm.make_generator(device, seed)
+        self.transformer.init_weights_(g)
+        with torch.no_grad():
+            self.mask_token.normal_(generator=g).mul_(0.02)
+        if compute_dtype is not None:
+            self.to(compute_dtype)
+        self.requires_grad_(False)
+        self.eval()
+
+        self._text_disabled = text_encoder is None
+        self.mask_token_id = cfg.mask_token_id
+        self.num_tokens = cfg.num_tokens
+        self.image_size = cfg.image_size
+        self.patch_size = cfg.patch_size
+        self._generator = vm.make_generator(device, seed + 1)
+
+    @property
+    def device(self):
+        return self.mask_token.device
+
+    def embed_text(self, text):
+        """(B, M, t5_dim) embeddings (numpy or torch) | None -> context on
+        this pipeline's device, or None."""
+        if text is None:
+            return None
+        if isinstance(text, (list, tuple)) and text and isinstance(text[0], str):
+            if self._text_disabled:
+                raise RuntimeError(
+                    'this pipeline was built with text_encoder=None (text '
+                    'disabled): pass precomputed context embeddings')
+            raise _not_ported('text encoding (T5 / CLIP towers)', 6)
+        ctx = torch.as_tensor(text if isinstance(text, torch.Tensor)
+                              else np.asarray(text), device=self.device)
+        if ctx.ndim != 3 or not ctx.is_floating_point():
+            raise _not_ported('conditioning on token ids or images', 6)
+        return ctx.float() if ctx.dtype == torch.float64 else ctx
+
+    def to_latent(self, img, text=None):
+        z, _, ids = self.vqgan.encode(img)
+        return z, ids, self.embed_text(text)
+
+    # -- sampling --------------------------------------------------------
+
+    @torch.no_grad()
+    def sample(self, ids, mask_ratio, text=None, topk=1, temperature=1.0,
+               generator=None, guidance_scale=None):
+        """One decode step (reference generate.py:159-181); returns
+        (ids_next, img)."""
+        context = self.embed_text(text)
+        n_masked = max(int(mask_ratio * self.num_tokens), 1)
+        ids_next, pred = sample_step(
+            self, torch.as_tensor(ids, device=self.device), context=context,
+            n_masked=n_masked, temperature=temperature, topk=topk,
+            cfg=self.config, guidance_scale=guidance_scale,
+            dtype=self.compute_dtype, generator=generator or self._generator)
+        return ids_next, self.vqgan.decode_from_indice(pred)
+
+    @torch.no_grad()
+    def generate(self, text=None, timesteps=18, temperature=1.0, topk=5,
+                 save_interval=2, generator=None, guidance_scale=None,
+                 num_samples=None, decode_steps='saved', cfg_warmup=0.0,
+                 negative_text=None, trajectory='merged'):
+        """(reference generate.py:183-198).  Returns a list of (B, H, W, 3)
+        image batches: one per saved step ('saved') or just the final one
+        ('final').  ``negative_text``: context(s) the guidance pushes away
+        from, in place of the unconditional branch."""
+        if negative_text is not None:
+            if guidance_scale is None:
+                raise ValueError('negative_text requires guidance_scale — '
+                                 'without it the negative prompt would be '
+                                 'silently ignored')
+            if text is None:
+                raise ValueError('negative_text requires a (positive) text '
+                                 'condition to guide towards')
+        context = self.embed_text(text)
+        neg_context = self.embed_text(negative_text)
+        if neg_context is not None and neg_context.shape[0] == 1:
+            neg_context = neg_context.expand(context.shape)
+        b = context.shape[0] if context is not None else (num_samples or 1)
+        init_ids = torch.full((b, self.num_tokens), self.mask_token_id,
+                              dtype=torch.int32, device=self.device)
+        _, shown = generate_ids(
+            self, init_ids, context, cfg=self.config, timesteps=timesteps,
+            temperature=temperature, topk=topk, guidance_scale=guidance_scale,
+            dtype=self.compute_dtype, cfg_warmup=cfg_warmup,
+            neg_context=neg_context, trajectory=trajectory,
+            generator=generator or self._generator)
+        if decode_steps == 'final':
+            steps = [timesteps - 1]
+        else:  # every save_interval-th step (generate.py:195-196)
+            steps = list(range(0, timesteps, save_interval))
+        sel = shown[steps]  # (S, B, L)
+        s = len(steps)
+        if s * b <= 128:
+            imgs = self.vqgan.decode_from_indice(sel.reshape(s * b, -1))
+            imgs = imgs.reshape(s, b, *imgs.shape[1:])
+            return [imgs[i] for i in range(s)]
+        return [self.vqgan.decode_from_indice(sel[i]) for i in range(s)]
+
+    def _rect_latent_mask(self, coord, inside):
+        """(reference generate.py:204-210): latent-grid mask from the pixel
+        rect coord = (x, y, h, w), ``inside`` = value inside the rect; a
+        sequence of per-sample rects gives a (B, L) mask."""
+        s = self.patch_size
+        g = self.image_size // s
+        coords = ([coord] if not coord or np.isscalar(coord[0])
+                  else list(coord))
+        rows = []
+        for c in coords:
+            x, y, h, w = (int(v) // s for v in c)
+            keep = np.full((g, g), 1 - inside, dtype=np.int32)
+            keep[y:y + h, x:x + w] = inside
+            rows.append(keep.reshape(-1))
+        return torch.as_tensor(np.stack(rows), device=self.device)
+
+    @torch.no_grad()
+    def paint(self, img, keep_mask, text=None, timesteps=1, topk=1,
+              temperature=0.0, generator=None, guidance_scale=None):
+        """Paint with a per-sample latent keep-mask (B, L) or (1, L):
+        1 = keep the original token, 0 = regenerate.  ``temperature`` may be
+        per-sample (B,)."""
+        _, ids, context = self.to_latent(img, text)
+        keep = torch.as_tensor(keep_mask, device=self.device).bool()
+        ids = torch.where(keep, ids, torch.full((), self.mask_token_id,
+                                                dtype=ids.dtype,
+                                                device=ids.device))
+        _, merged = generate_ids(
+            self, ids, context, cfg=self.config, timesteps=timesteps,
+            temperature=temperature, topk=topk, guidance_scale=guidance_scale,
+            dtype=self.compute_dtype, clamp_remask=True,
+            generator=generator or self._generator)
+        return self.vqgan.decode_from_indice(merged[-1])
+
+    def inpaint(self, img, coord, text=None, timesteps=1, topk=1,
+                temperature=0.0, generator=None, guidance_scale=None):
+        """Regenerate inside the rect (reference generate.py:200-217)."""
+        keep = self._rect_latent_mask(coord, inside=0)
+        return self.paint(img, keep, text, timesteps, topk, temperature,
+                          generator, guidance_scale)
+
+    def outpaint(self, img, coord, text=None, timesteps=1, topk=1,
+                 temperature=0.0, generator=None, guidance_scale=None):
+        """Regenerate outside the rect (reference generate.py:219-236)."""
+        keep = self._rect_latent_mask(coord, inside=1)
+        return self.paint(img, keep, text, timesteps, topk, temperature,
+                          generator, guidance_scale)
+
+    # -- not in this slice ----------------------------------------------
+
+    def quantize(self, mode='w8a8', **kw):
+        raise _not_ported('int8 quantization', 9)
+
+    def enable_pipeline_parallel(self, *a, **kw):
+        raise _not_ported('pipeline-parallel decode', 10)
+
+    # -- checkpointing ---------------------------------------------------
+
+    def from_pretrained(self, path):
+        from ..convert.from_jax import load_jax_params
+        from ..utils.checkpoint import load_flat
+        load_jax_params(self, load_flat(path))
+        return self
+
+    @property
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())

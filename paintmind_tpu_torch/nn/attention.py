@@ -1,0 +1,91 @@
+"""Multi-head (self / cross) attention (``paintmind_tpu/nn/attention.py``).
+
+q/k/v projections without bias, output projection with bias; with
+``context=None`` the module self-attends (the unconditional branch of
+classifier-free guidance).  The attention itself runs in the JAX layout
+(B, N, H, D) through one of two backends:
+
+  * ``'flash'`` / ``'auto'``: the K1 wrapper (``ops/flash_attention``), which
+    launches the kernel on a CUDA tensor and takes the plain version on a
+    CPU tensor.  Unlike the JAX package, ``'auto'`` needs no shape gate: K1
+    takes any N and M (it masks the ragged edges itself).
+  * ``'plain'``: the plain PyTorch version on any device (the reference the
+    kernel is held against).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.flash_attention import flash_attention, flash_attention_plain
+from .core import Linear
+
+BACKENDS = ('auto', 'plain', 'flash')
+_backend = 'auto'
+
+
+def set_attention_backend(name: str):
+    """Globally select 'auto' | 'plain' | 'flash'."""
+    if name not in BACKENDS:
+        raise ValueError(f'attention backend {name!r} not in {BACKENDS}')
+    global _backend
+    _backend = name
+
+
+def get_attention_backend() -> str:
+    return _backend
+
+
+def attention_core(q, k, v, scale, backend=None):
+    """(B, N, H, D) x (B, M, H, D) -> (B, N, H, D)."""
+    backend = backend or _backend
+    if backend not in BACKENDS:
+        raise ValueError(f'attention backend {backend!r} not in {BACKENDS}')
+    if backend == 'plain':
+        return flash_attention_plain(q, k, v, scale)
+    return flash_attention(q, k, v, scale)
+
+
+class Attention(nn.Module):
+    def __init__(self, query_dim, *, context_dim=None, heads=8, dim_head=64,
+                 device=None, dtype=None):
+        super().__init__()
+        inner = heads * dim_head
+        context_dim = query_dim if context_dim is None else context_dim
+        self.heads = heads
+        self.dim_head = dim_head
+        kw = dict(device=device, dtype=dtype)
+        self.to_q = Linear(query_dim, inner, bias=False, **kw)
+        self.to_k = Linear(context_dim, inner, bias=False, **kw)
+        self.to_v = Linear(context_dim, inner, bias=False, **kw)
+        self.to_out = Linear(inner, query_dim, **kw)
+
+    def _split(self, t):
+        return t.reshape(t.shape[0], t.shape[1], self.heads, self.dim_head)
+
+    def forward(self, x, context=None, *, backend=None):
+        """x: (B, N, Dq); context: (B, M, Dc) or None (self-attention)."""
+        ctx = x if context is None else context
+        q = self._split(self.to_q(x))
+        k = self._split(self.to_k(ctx))
+        v = self._split(self.to_v(ctx))
+        out = attention_core(q, k, v, self.dim_head ** -0.5, backend)
+        return self.to_out(out.reshape(x.shape[0], x.shape[1], -1))
+
+    def forward_cfg_halves(self, x, context, *, backend=None):
+        """Cross-attention for a CFG-fused batch: ``x`` (2B, N, Dq) holds
+        [conditional; unconditional] halves, ``context`` is (B, M, Dc).  The
+        first B rows attend to ``context``, the last B self-attend; the Q and
+        output projections run once at 2B."""
+        b = x.shape[0] // 2
+        q = self._split(self.to_q(x))
+        ctx = context.to(x.dtype)
+        xu = x[b:]
+        scale = self.dim_head ** -0.5
+        out_c = attention_core(q[:b], self._split(self.to_k(ctx)),
+                               self._split(self.to_v(ctx)), scale, backend)
+        out_u = attention_core(q[b:], self._split(self.to_k(xu)),
+                               self._split(self.to_v(xu)), scale, backend)
+        out = torch.cat([out_c, out_u], dim=0)
+        return self.to_out(out.reshape(x.shape[0], x.shape[1], -1))

@@ -1,0 +1,66 @@
+"""Building blocks: linear, LayerNorm with fp32 statistics, initialisers.
+
+Numerics policy (as in ``paintmind_tpu/nn/core.py``): a layer computes in
+the dtype of its incoming activations, casting its own parameters to it,
+except LayerNorm statistics, which always run in fp32.  Inference only:
+dropout is the identity and is not represented.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose parameters follow the activation dtype (JAX
+    ``linear`` casts its kernel to ``x.dtype``)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics, eps 1e-5, output in the input dtype."""
+
+    def __init__(self, dim, *, device=None, dtype=None):
+        super().__init__(dim, eps=1e-5, device=device, dtype=dtype)
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape,
+                         self.weight.float(), self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+@torch.no_grad()
+def xavier_uniform_(weight, generator):
+    """Xavier-uniform for a torch (out, in) weight."""
+    fan_out, fan_in = weight.shape
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    return weight.uniform_(-a, a, generator=generator)
+
+
+@torch.no_grad()
+def fan_in_uniform_(weight, generator):
+    """torch's Conv2d default: uniform(±1/sqrt(fan_in))."""
+    a = 1.0 / math.sqrt(weight.shape[1])
+    return weight.uniform_(-a, a, generator=generator)
+
+
+@torch.no_grad()
+def init_module_(module, generator):
+    """Seeded init of every layer below ``module``: xavier-uniform linear
+    weights, zero biases, unit LayerNorm (the JAX package's scheme; the
+    layers with another scheme re-initialise themselves afterwards)."""
+    for m in module.modules():
+        if isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            xavier_uniform_(m.weight, generator)
+            if m.bias is not None:
+                m.bias.zero_()

@@ -7,7 +7,8 @@ setup(
                 'text-to-image',
     license='Apache-2.0',
     packages=find_packages(exclude=('tests', 'tools', 'scripts')),
-    package_data={'paintmind_tpu.native': ['fastimage.cpp', 'Makefile']},
+    package_data={'paintmind_tpu.native': ['fastimage.cpp', 'Makefile'],
+                  'paintmind_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'optax', 'orbax-checkpoint', 'einops', 'numpy', 'pillow',

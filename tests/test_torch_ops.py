@@ -1,0 +1,173 @@
+"""Port kernels' plain versions held against the JAX package on the CPU:
+flash attention and the VQ lookup against the Pallas kernels in interpret
+mode, the sampling head's top-k mask and arithmetic against the JAX math on
+shared Gumbel noise.  On a CPU tensor each port wrapper takes its plain
+version and launches nothing."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paintmind_tpu.models.quantize import l2norm as jax_l2norm
+from paintmind_tpu.ops import flash_attention as jfa
+from paintmind_tpu.ops import sampling as jsm
+from paintmind_tpu.ops import vq_lookup as jvq
+from paintmind_tpu_torch.models import quantize as tq
+from paintmind_tpu_torch.ops import flash_attention as tfa
+from paintmind_tpu_torch.ops import sampling as tsm
+from paintmind_tpu_torch.ops import vq_lookup as tvq
+
+
+@pytest.fixture
+def interpret_mode():
+    # the jitted JAX wrappers cache per shape: the shapes below are used by
+    # no other test, so the flag is honoured at trace time
+    jfa._INTERPRET = True
+    jvq._INTERPRET = True
+    yield
+    jfa._INTERPRET = False
+    jvq._INTERPRET = False
+
+
+@pytest.mark.parametrize('n,m', [(128, 77), (130, 40)])
+def test_flash_plain_matches_jax_kernel(interpret_mode, n, m):
+    """Plain K1 vs the Pallas flash kernel (interpret mode), fp32:
+    mean abs error <= 1e-5; the CPU wrapper is the plain version."""
+    rng = np.random.default_rng(n + m)
+    q, k, v = (rng.standard_normal((2, s, 3, 64)).astype(np.float32)
+               for s in (n, m, m))
+    ref = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), 0.125))
+    before = tfa.launches
+    out = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), 0.125)
+    assert out.shape == (2, n, 3, 64) and out.dtype == torch.float32
+    print(f'plain flash vs Pallas (interpret) N={n} M={m}: mean abs '
+          f'{np.abs(out.numpy() - ref).mean():.3e}, max abs '
+          f'{np.abs(out.numpy() - ref).max():.3e}')
+    assert float(np.abs(out.numpy() - ref).mean()) <= 1e-5
+    assert float(np.abs(out.numpy() - ref).max()) <= 1e-4
+    assert tfa.launches == before
+
+
+def test_vq_lookup_plain_matches_jax_kernel(interpret_mode):
+    """Plain K2 vs the Pallas lookup kernel (interpret mode): indices equal."""
+    rng = np.random.default_rng(7)
+    z = np.array(jax_l2norm(jnp.asarray(
+        rng.standard_normal((3, 24, 32)), jnp.float32)))
+    e = np.array(jax_l2norm(jnp.asarray(
+        rng.standard_normal((512, 32)), jnp.float32)))
+    ref = np.asarray(jvq.fused_nearest_codes(jnp.asarray(z), jnp.asarray(e)))
+    before = tvq.launches
+    got = tvq.fused_nearest_codes(torch.from_numpy(z), torch.from_numpy(e))
+    assert got.dtype == torch.int32 and got.shape == (3, 24)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert tvq.launches == before
+    # the quantizer's entry point and l2norm agree with JAX too
+    zt = torch.from_numpy(rng.standard_normal((3, 24, 32)).astype(np.float32))
+    np.testing.assert_allclose(tq.l2norm(zt).numpy(),
+                               np.asarray(jax_l2norm(jnp.asarray(zt.numpy()))),
+                               atol=1e-7)
+    np.testing.assert_array_equal(
+        tq.nearest_codes(torch.from_numpy(e), torch.from_numpy(z),
+                         backend='plain').numpy(), ref)
+
+
+def _tie_cases(rng):
+    row = np.full((512,), -50.0, np.float32)
+    row[:4] = [5.0, 4.0, 4.0, 4.0]
+    return [
+        np.tile(row, (8, 1)),  # ties straddling the k boundary
+        np.array(jnp.asarray(rng.standard_normal((16, 512)) * 8,
+                             jnp.bfloat16).astype(jnp.float32)),
+        (rng.standard_normal((16, 512)) * 3).astype(np.float32),
+        rng.integers(0, 4, (16, 512)).astype(np.float32),  # mass ties
+    ]
+
+
+def test_topk_keep_mask_matches_jax():
+    """topk_keep_mask equal to the JAX one on the three tie cases of
+    test_topk_keep_mask_exact_k_with_ties (and the boundary row): exactly k
+    kept, the lowest indices among equal values."""
+    rng = np.random.default_rng(0)
+    for l in _tie_cases(rng):
+        for k in (1, 3, 5, 25):
+            got = tsm.topk_keep_mask(torch.from_numpy(l), k).numpy()
+            ref = np.asarray(jsm.topk_keep_mask(jnp.asarray(l), k))
+            np.testing.assert_array_equal(got, ref)
+            assert (got.sum(-1) == k).all()
+    boundary = _tie_cases(rng)[0]
+    keep = tsm.topk_keep_mask(torch.from_numpy(boundary), 3).numpy()
+    assert keep[:, :3].all() and not keep[:, 3].any()
+
+
+def _jax_sample_math(l, temp, noise, k):
+    """The JAX kernel's arithmetic (ops/sampling.py _sample_kernel) in jnp,
+    with the Gumbel noise given instead of drawn on the core."""
+    l = jnp.asarray(l, jnp.float32)
+    row_max = jnp.max(l, axis=-1, keepdims=True)
+    lse = jnp.log(jnp.sum(jnp.exp(l - row_max), axis=-1, keepdims=True))
+    keep = jsm.topk_keep_mask(l, k)
+    t = jnp.maximum(jnp.asarray(temp, jnp.float32), 1e-10)
+    masked = jnp.where(keep, l / t + noise, jsm.NEG_INF)
+    pred = jnp.argmax(masked, axis=-1)
+    picked = jnp.take_along_axis(l, pred[..., None], axis=-1)
+    return np.asarray(pred), np.asarray(jnp.exp(picked - row_max - lse)[..., 0])
+
+
+@pytest.mark.parametrize('temperature', [1e-10, 0.7, 'per-sample'])
+def test_sample_plain_matches_jax_math(temperature):
+    """Plain K3 vs the JAX top-k mask + Gumbel argmax math on the same
+    noise: pred equal, conf within 1e-6; fp32 and bf16-valued logits."""
+    rng = np.random.default_rng(3)
+    b, l, v, k = 3, 10, 256, 5
+    for logits in _tie_cases(rng)[1:] + [
+            (rng.standard_normal((b * l, v)) * 4).astype(np.float32)]:
+        logits = np.resize(logits, (b, l, v)).astype(np.float32)
+        key = jax.random.PRNGKey(int(rng.integers(1 << 30)))
+        noise = np.array(-jnp.log(-jnp.log(jnp.maximum(
+            jax.random.uniform(key, (b, l, v)), 1e-20))))
+        if temperature == 'per-sample':
+            temp = np.asarray([0.5, 1.0, 2.0], np.float32)
+            jtemp = temp[:, None, None]
+        else:
+            temp = jtemp = np.float32(temperature)
+        ref_pred, ref_conf = _jax_sample_math(logits, jtemp, noise, k)
+        pred, conf = tsm.gumbel_topk_sample_plain(
+            torch.from_numpy(logits), torch.as_tensor(temp), k,
+            torch.from_numpy(noise))
+        assert pred.dtype == torch.int32 and conf.shape == (b, l)
+        np.testing.assert_array_equal(pred.numpy(), ref_pred)
+        assert float(np.abs(conf.numpy() - ref_conf).max()) <= 1e-6
+
+
+def test_sample_wrapper_on_cpu_uses_plain_and_generator():
+    """On a CPU tensor the K3 wrapper is the plain version with noise from
+    the generator: same generator state, same sample; nothing launched."""
+    logits = torch.randn(2, 6, 64, generator=torch.Generator().manual_seed(0))
+    before = tsm.launches
+    a = tsm.fused_gumbel_topk_sample(logits, 1.0, 5,
+                                     generator=torch.Generator().manual_seed(1))
+    noise = tsm.gumbel_noise(logits.shape,
+                             generator=torch.Generator().manual_seed(1))
+    b = tsm.gumbel_topk_sample_plain(logits, 1.0, 5, noise)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    top5 = torch.topk(logits, 5, dim=-1).indices
+    assert (top5 == a[0][..., None].long()).any(-1).all()
+    assert tsm.launches == before
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    """Checks that run before any build or launch: the wrappers refuse a
+    device they do not support instead of falling back."""
+    meta = torch.empty(1, 4, 1, 64, device='meta')
+    with pytest.raises(ValueError):
+        tfa.flash_attention(meta, meta, meta, 0.125)
+    with pytest.raises(ValueError):
+        tvq.fused_nearest_codes(torch.empty(4, 32, device='meta'),
+                                torch.empty(8, 32, device='meta'))
+    with pytest.raises(ValueError):
+        tsm.fused_gumbel_topk_sample(torch.empty(4, 8, device='meta'), 1.0)
