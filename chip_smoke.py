@@ -7,7 +7,7 @@ Phases, each printed on its own line(s); any failure raises and the script
 exits non-zero with no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. builds kernels K1-K3 from the sources in this checkout (one ``nvcc``
+  2. builds kernels K1-K4 from the sources in this checkout (one ``nvcc``
      per CUDA source, all at once; the Triton kernel by its first launch);
   3. holds each kernel against its plain PyTorch version at the main
      path's shapes, and times kernel, plain version and (where one exists)
@@ -18,16 +18,25 @@ exits non-zero with no result line:
      weights, bf16) runs a 16-step ``generate`` at B = 8, the same with
      classifier-free guidance, and an ``inpaint``; the launch counters must
      show each kernel on that path, at the expected counts;
-  6. one ``{"kernels": [...]}`` line, then the last line
+  6. stage-2 training at the same width (fp32 master weights, bf16
+     compute): one microbatch of B = 8 through ``pipeline_loss`` and
+     ``backward()`` with the kernels and with the plain attention, loss and
+     gradients compared; its launch counts without and with remat; six
+     updates of the step function (Lion, dropout on, two microbatches
+     each), timed; a short ``PaintMindTrainer.train()`` with ``save()``,
+     ``resume('auto')`` into a second trainer and one ``evaluate()``;
+  7. one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero when there is none.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,11 +46,13 @@ from PIL import Image
 
 import paintmind_tpu_torch as pt
 from paintmind_tpu_torch.models import quantize as tq
-from paintmind_tpu_torch.models.pipeline import ids_to_tokens, _transformer_logits
+from paintmind_tpu_torch.models.pipeline import (
+    _transformer_logits, ids_to_tokens, pipeline_loss)
 from paintmind_tpu_torch.ops import _build
 from paintmind_tpu_torch.ops import flash_attention as fa
 from paintmind_tpu_torch.ops import sampling as sm
 from paintmind_tpu_torch.ops import vq_lookup as vq
+from paintmind_tpu_torch.train.steps import make_pipeline_train_step
 from paintmind_tpu_torch.utils.checkpoint import load_flat
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -51,8 +62,11 @@ ASSET = os.path.join(ROOT, 'paintmind_tpu', 'assets', 'vit_vq_photo.npz')
 # (CUDA-core) operations/s.  Rated at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+CARD = ''  # name and power limit as nvidia-smi gives them; set in main()
 
-KERNEL_MODULES = {'K1': fa, 'K2': vq, 'K3': sm}
+# kernel -> (module, name of its launch counter there)
+KERNEL_COUNTERS = {'K1': (fa, 'launches'), 'K2': (vq, 'launches'),
+                   'K3': (sm, 'launches'), 'K4': (fa, 'launches_bwd')}
 
 
 def log(*parts):
@@ -60,12 +74,13 @@ def log(*parts):
 
 
 def reset_counts():
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_counts():
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 def median_ms(fn, iters):
@@ -153,6 +168,79 @@ def check_k1(g):
                 entry = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by, library_ms=lib_ms)
             del q, k, v, out, ref, err
+    return entry
+
+
+def mean_rel(got, ref):
+    """Mean absolute error over the reference's mean magnitude."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().mean() / ref.abs().mean()).item()
+
+
+def check_k4(g):
+    """K4 against ``flash_attention_backward_plain`` at the training path's
+    shapes: stage-2 self (B = 8, N = M = 1024, H = 16) and cross (M = 77)
+    attention in fp32 and bf16, and a ragged case (N = 200, M = 77).  Gates:
+    mean relative error per gradient <= 1e-5 in fp32 and <= 1e-3 in bf16
+    (measured on an H100: 8e-7 and 7e-7; the plain version keeps P and dS in
+    fp32 as the kernel does, so in bf16 what is left is a last-bit
+    difference where the two round a gradient).  ``torch.autograd.grad`` through
+    ``flash_attention`` must give the bits of a direct K4 call.  Times the
+    main path's most frequent call, stage-2 self-attention in bf16, and the
+    backward of ``F.scaled_dot_product_attention`` on a retained graph."""
+    scale = 64 ** -0.5
+    entry = None
+    for label, b, n, m, h in (('stage-2 self', 8, 1024, 1024, 16),
+                              ('stage-2 cross', 8, 1024, 77, 16),
+                              ('ragged', 2, 200, 77, 3)):
+        for dtype in (torch.float32, torch.bfloat16):
+            d = 64
+            q, k, v, go = (torch.randn(b, rows, h, d, device='cuda',
+                                       generator=g).to(dtype)
+                           for rows in (n, m, m, n))
+            lse = fa._launch_forward(q, k, v, scale, with_lse=True)[1]
+            got = fa.flash_attention_backward(q, k, v, go, scale, lse)
+            ref = fa.flash_attention_backward_plain(q, k, v, go, scale)
+            torch.cuda.synchronize()
+            errs = [mean_rel(a, r) for a, r in zip(got, ref)]
+            max_abs = max((a.float() - r.float()).abs().max().item()
+                          for a, r in zip(got, ref))
+            gate = 1e-5 if dtype == torch.float32 else 1e-3
+            check(max(errs) <= gate and all(torch.isfinite(a).all() for a in got),
+                  f'K4 {label} {dtype}: mean rel err dq, dk, dv {errs}')
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o2 = fa.flash_attention(*leaves, scale)
+            check(o2.grad_fn is not None, 'flash_attention result is detached')
+            auto = torch.autograd.grad(o2, leaves, go)
+            check(all(torch.equal(a, r) for a, r in zip(auto, got)),
+                  f'K4 {label} {dtype}: autograd.grad differs from a direct call')
+            line = (f'K4 {label} B={b} N={n} M={m} H={h} D={d} {str(dtype)[6:]}: '
+                    f'mean_rel_err dq={errs[0]:.3e} dk={errs[1]:.3e} '
+                    f'dv={errs[2]:.3e} max_abs_err={max_abs:.3e}')
+            if label != 'ragged':
+                ms = time_ms(lambda: fa.flash_attention_backward(
+                    q, k, v, go, scale, lse), 5)
+                plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(
+                    q, k, v, go, scale), 3)
+                lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True)
+                              for t in (q, k, v))
+                lo = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+                lg = go.transpose(1, 2)
+                lib_ms = time_ms(lambda: torch.autograd.grad(
+                    lo, (lq, lk, lv), lg, retain_graph=True), 10)
+                # q, k, v, g and the log-sum-exp read once, dq, dk, dv
+                # written once; five products
+                nbytes = ((3 * b * n * h * d + 4 * b * m * h * d)
+                          * q.element_size() + lse.numel() * 4)
+                bms, by = bound(nbytes, 10 * b * h * n * m * d, dtype)
+                line += (f' ms={ms:.4f} plain_ms={plain_ms:.4f} '
+                         f'sdpa_bwd_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})')
+                if label == 'stage-2 self' and dtype == torch.bfloat16:
+                    entry = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                del lq, lk, lv, lo, lg
+            log(line)
+            del q, k, v, go, lse, got, ref, leaves, o2, auto
     return entry
 
 
@@ -277,7 +365,7 @@ def stage1(totals):
     x = seeded_images(8, 256, 1)
     enc, dec = vqgan.config.enc.depth, vqgan.config.dec.depth
     rec, _ = drive(lambda: vqgan.reconstruct(x),
-                   {'K1': enc + dec, 'K2': 1, 'K3': 0}, totals,
+                   {'K1': enc + dec, 'K2': 1, 'K3': 0, 'K4': 0}, totals,
                    'stage 1 reconstruct B=8 256² fp32')
     _, _, ids = vqgan.encode(x)
     plain = vqgan.reconstruct(x, backend='plain', vq_backend='plain')
@@ -291,7 +379,7 @@ def stage1(totals):
     ms = median_ms(lambda: vqgan.reconstruct(x), 5)
     pil = Image.fromarray(((x[0].cpu().numpy() + 1) * 127.5).astype(np.uint8))
     fig, _ = drive(lambda: pt.reconstruction(pil, model=vqgan),
-                   {'K1': enc + dec, 'K2': 1, 'K3': 0}, totals,
+                   {'K1': enc + dec, 'K2': 1, 'K3': 0, 'K4': 0}, totals,
                    'stage 1 reconstruction demo (PIL in, figure out)')
     check(fig.size == (512, 256), f'reconstruction figure {fig.size}')
     psnr = 10 * np.log10(4.0 / ((rec - x) ** 2).mean().item())
@@ -325,12 +413,12 @@ def stage2(totals):
                              decode_steps='final', generator=g, **kw)[-1]
 
     imgs, s_plain = drive(gen, {'K1': depth * 2 * steps + dec, 'K2': 0,
-                                'K3': steps}, totals,
+                                'K3': steps, 'K4': 0}, totals,
                           'generate B=8 16 steps')
     check_images(imgs, 'generate')
     guided, s_cfg = drive(lambda: gen(guidance_scale=3.0),
                           {'K1': depth * 3 * steps + dec, 'K2': 0,
-                           'K3': steps}, totals,
+                           'K3': steps, 'K4': 0}, totals,
                           'generate B=8 16 steps guidance_scale=3.0')
     check_images(guided, 'guided generate')
     paint_steps = 4
@@ -338,7 +426,7 @@ def stage2(totals):
                                             timesteps=paint_steps,
                                             generator=g),
                        {'K1': cfg.vqc.enc.depth + depth * 2 * paint_steps + dec,
-                        'K2': 1, 'K3': paint_steps}, totals,
+                        'K2': 1, 'K3': paint_steps, 'K4': 0}, totals,
                        'inpaint B=8 4 steps')
     check_images(painted, 'inpaint')
     log(f'stage 2: {8 / s_plain:.3f} images/s without guidance, '
@@ -362,6 +450,198 @@ def stage2(totals):
     log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
 
 
+# ---------------------------------------------------------------------------
+# phase 6: stage-2 training
+# ---------------------------------------------------------------------------
+
+class SeededDataset:
+    """(256² image, caption) items made from the item's index."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(i)
+        low = rng.uniform(-1, 1, (16, 16, 3)).astype(np.float32)
+        return np.kron(low, np.ones((16, 16, 1), np.float32)), f'caption {i}'
+
+
+def text_embedder(captions):
+    """A seeded stand-in for the text tower: caption -> (77, 1024)."""
+    rows = [torch.randn(77, 1024, generator=torch.Generator().manual_seed(
+        int(c.split()[-1]))) for c in captions]
+    return torch.stack(rows).cuda()
+
+
+def loss_and_grads(pipe, imgs, ctx, noise, **kw):
+    pipe.zero_grad(set_to_none=True)
+    loss = pipeline_loss(pipe, imgs, ctx, 0.6, noise=noise, **kw)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item()
+
+
+def training(totals):
+    pipe = pt.create_model('pipeline', 'paintmindv1', pretrained=False,
+                           stage1_checkpoint_path=ASSET, text_encoder=None)
+    cfg = pipe.config
+    vq0 = [p.detach().clone() for p in pipe.vqgan.parameters()]
+    trainable = pipe.trainable_parameters()
+    for p in trainable:
+        p.requires_grad_(True)
+    n_train = sum(p.numel() for p in trainable)
+    log(f'training: paintmindv1, {n_train / 1e6:.1f} M trainable parameters '
+        f'(fp32 master weights, bf16 compute), VQGAN frozen')
+    g = torch.Generator(device='cuda').manual_seed(7)
+    imgs16 = seeded_images(16, 256, 3)
+    ctx16 = torch.randn(16, 77, cfg.t5_dim, device='cuda', generator=g)
+    imgs, ctx = imgs16[:8].bfloat16(), ctx16[:8].bfloat16()
+    noise = torch.rand(8, cfg.num_tokens, device='cuda', generator=g)
+    depth, enc = cfg.depth, cfg.vqc.enc.depth
+
+    # 6.1 + 6.2: one microbatch, kernels against the plain attention
+    # (dropout off: the transformer in eval mode), with the launch counts
+    pipe.eval()
+    named = dict(pipe.named_parameters())
+    watched = ['mask_token', 'transformer.token_proj.weight',
+               'transformer.to_logits.weight']
+    watched += [f'transformer.layers.{i}.{a}.{w}.weight'
+                for i in (0, depth - 1) for a in ('attn1', 'attn2')
+                for w in ('to_q', 'to_k', 'to_v')]
+
+    def grads():
+        return {n: named[n].grad.clone() for n in watched}
+
+    loss_and_grads(pipe, imgs, ctx, noise)  # warm-up: cuBLAS, allocator
+    loss_k, _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise),
+                      {'K1': enc + 2 * depth, 'K2': 1, 'K3': 0,
+                       'K4': 2 * depth}, totals,
+                      'train microbatch B=8 forward+backward')
+    for p in trainable:
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              and bool(p.grad.abs().max() > 0),
+              'a trainable parameter has no finite, non-zero gradient')
+    grads_k = grads()
+    t0 = time.perf_counter()
+    loss_and_grads(pipe, imgs, ctx, noise, remat=True)
+    log(f'first remat call: {time.perf_counter() - t0:.3f} s (one-time '
+        f'set-up inside torch.utils.checkpoint included)')
+    loss_r, _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise,
+                                             remat=True),
+                      {'K1': enc + 4 * depth, 'K2': 1, 'K3': 0,
+                       'K4': 2 * depth}, totals,
+                      'train microbatch B=8 forward+backward, remat')
+    check(loss_r == loss_k and all(torch.equal(named[n].grad, grads_k[n])
+                                   for n in watched),
+          f'remat changed the loss or the gradients: {loss_r} vs {loss_k}')
+    plain = dict(backend='plain', vq_backend='plain')
+    unused = dict.fromkeys(totals, 0)
+    loss_p, _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise, **plain),
+                      {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0}, unused,
+                      "train microbatch B=8, backend='plain'")
+    grads_p = grads()
+    # the yardstick for both bf16 runs: the plain attention in fp32
+    loss_f = loss_and_grads(pipe, imgs.float(), ctx.float(), noise, **plain)
+    grads_f = grads()
+    log(f'train microbatch: loss kernels {loss_k:.5f}, plain {loss_p:.5f}, '
+        f'plain fp32 {loss_f:.5f}, ln(8192) = {math.log(8192):.5f}')
+    log('gradient mean rel err (kernels bf16 vs fp32 / plain bf16 vs fp32 / '
+        'kernels vs plain, both bf16):')
+    for n in watched:
+        e_k, e_p, e_kp = (mean_rel(grads_k[n], grads_f[n]),
+                          mean_rel(grads_p[n], grads_f[n]),
+                          mean_rel(grads_k[n], grads_p[n]))
+        log(f'  {n.replace("transformer.", ""):32s} {e_k:.3e} / {e_p:.3e} / '
+            f'{e_kp:.3e}')
+        # bf16 activations through 12 layers each way leave either path
+        # some 13 % from fp32 at initialisation (measured, H100); the gate
+        # is that the kernels are no farther from it than the plain path
+        check(e_k <= 1.25 * e_p + 0.01 and e_k <= 0.2 and e_kp <= 0.15,
+              f'gradient of {n}: rel err kernels {e_k}, plain {e_p}, '
+              f'between them {e_kp}')
+    check(abs(loss_k - loss_f) <= 2e-3 and abs(loss_k - loss_p) <= 2e-3,
+          f'loss kernels {loss_k}, plain {loss_p}, fp32 {loss_f}')
+    del grads_p, grads_f
+    del grads_k
+    pipe.zero_grad(set_to_none=True)
+
+    # 6.3: six updates on one fixed batch, two microbatches of 8 each
+    opt = pt.optim.lion(trainable, 1e-4, (0.9, 0.99), weight_decay=0.05,
+                        max_grad_norm=1.0)
+    step = make_pipeline_train_step(pipe, opt, grad_accum=2,
+                                    compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def update():
+            start.record()
+            loss = step(imgs16, ctx16, 0.6)['loss']
+            end.record()
+            return loss
+        loss, _ = drive(update, {'K1': 2 * (enc + 2 * depth), 'K2': 2,
+                                 'K3': 0, 'K4': 4 * depth}, totals,
+                        f'train update {i} B=16 grad_accum=2')
+        losses.append(loss.item())
+        times.append(start.elapsed_time(end) / 1e3)
+    check(all(math.isfinite(x) for x in losses), f'losses {losses}')
+    check(abs(losses[0] - math.log(8192)) <= 0.5,
+          f'first loss {losses[0]} is not near ln 8192')
+    check(losses[-1] < losses[0], f'loss did not fall: {losses}')
+    sec = float(np.median(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'train updates (Lion, lr 1e-4, dropout {cfg.dropout}, 2 microbatches '
+        f'of B=8): losses {" ".join(f"{x:.4f}" for x in losses)}; '
+        f'{sec:.4f} s per update = {16 / sec:.2f} images/s (median of 5 '
+        f'CUDA-event timed updates after the first), peak device memory '
+        f'{peak:.2f} GiB; {CARD}')
+
+    # 6.4: the trainer: three host steps through the DataLoader, save,
+    # resume into a second trainer, evaluate
+    with tempfile.TemporaryDirectory() as folder:
+        def trainer_for(model):
+            return pt.PaintMindTrainer(
+                model, SeededDataset(30), num_epoch=1, valid_size=6,
+                lr=1e-4, warmup_steps=2, decay_steps=10, batch_size=8,
+                num_workers=4, save_every=100, sample_every=100,
+                result_folder=folder, log_dir=os.path.join(folder, 'log'),
+                text_embedder=text_embedder, seed=5)
+        first = trainer_for(pipe)
+        _, seconds = drive(first.train,
+                           {'K1': 3 * (enc + 2 * depth), 'K2': 3, 'K3': 0,
+                            'K4': 6 * depth}, totals,
+                           'PaintMindTrainer.train() 3 host steps B=8 + save')
+        check(first.steps == 3 and math.isfinite(first.log['loss']),
+              f'trainer steps {first.steps}')
+        second_pipe = pt.create_model(
+            'pipeline', 'paintmindv1', pretrained=False,
+            stage1_checkpoint_path=ASSET, text_encoder=None, seed=99)
+        second = trainer_for(second_pipe).resume('auto')
+        batch = next(iter(first.train_dl))
+        want = first.train_step(batch)['loss'].item()
+        got = second.train_step(batch)['loss'].item()
+        check(second.steps == 4 and got == want,
+              f'resumed trainer: next loss {got}, the first trainer\'s {want}')
+        log(f'trainer: loss after 3 steps {first.log["loss"]:.4f}; resumed '
+            f'trainer next-step loss {got:.6f} == {want:.6f}')
+        del second, second_pipe
+        dec = cfg.vqc.dec.depth
+        drive(first.evaluate, {'K1': 18 * 2 * depth + dec, 'K2': 0,
+                               'K3': 18, 'K4': 0}, totals,
+              'PaintMindTrainer.evaluate() B=6 18 steps')
+        grid = os.path.join(folder, 'images', f'step_{first.steps}_0.png')
+        with Image.open(grid) as im:
+            check(im.size[0] > 6 * 256, f'evaluate grid {im.size}')
+    check(all(torch.equal(a, b) for a, b in zip(vq0, pipe.vqgan.parameters())),
+          'training changed the frozen VQGAN')
+    log('training: the frozen VQGAN is bit-equal to its start')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py: no CUDA device available', file=sys.stderr)
@@ -371,6 +651,8 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = card
     log(card)
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
@@ -389,15 +671,18 @@ def main():
             torch.randn(64, 8192, device='cuda', generator=g).to(dtype), 1.0,
             5, generator=g)
     torch.cuda.synchronize()
-    log(f'build K1-K3 (nvcc in parallel + Triton first launch): '
+    log(f'build K1-K4 (nvcc in parallel + Triton first launch): '
         f'{time.perf_counter() - t0:.1f} s')
 
-    results = {'K1': check_k1(g), 'K2': check_k2(g), 'K3': check_k3(g)}
+    results = {'K1': check_k1(g), 'K2': check_k2(g), 'K3': check_k3(g),
+               'K4': check_k4(g)}
     torch.cuda.empty_cache()
 
-    totals = {name: 0 for name in KERNEL_MODULES}
+    totals = {name: 0 for name in KERNEL_COUNTERS}
     stage1(totals)
     stage2(totals)
+    torch.cuda.empty_cache()
+    training(totals)
     for name, n in totals.items():
         check(n > 0, f'{name} never launched on the main path')
 
@@ -410,6 +695,9 @@ def main():
         'K3': ('fused_gumbel_topk_sample', 'triton',
                'paintmind_tpu_torch/ops/sampling.py',
                'paintmind_tpu/ops/sampling.py:136'),
+        'K4': ('flash_attention_bwd', 'cuda',
+               'paintmind_tpu_torch/csrc/flash_attention_bwd.cu',
+               'paintmind_tpu/ops/flash_attention.py:195'),
     }
     kernels = []
     for key, (name, route, source, replaces) in meta.items():

@@ -1,16 +1,18 @@
 """PyTorch / CUDA port of paintmind_tpu for NVIDIA Hopper (H100).
 
 Same models, layouts and parameter trees as the JAX package; every Pallas
-kernel on the inference path is a hand-written Hopper kernel here
-(``ops/``).  Entry points run on the card (``device='cuda'``) unless the
+kernel of the JAX package is a hand-written Hopper kernel here (``ops/``).  Entry points run on the card (``device='cuda'``) unless the
 caller asks for the CPU.  The package imports neither JAX nor
 ``paintmind_tpu``.
 """
 
+from . import optim
 from .config import Config, register_version, ver2cfg
 from .factory import create_model
 from .nn.attention import set_attention_backend
 from .reconstruct import reconstruction
+from .utils.trainer import PaintMindTrainer
 
-__all__ = ['Config', 'create_model', 'reconstruction', 'register_version',
-           'set_attention_backend', 'ver2cfg']
+__all__ = ['Config', 'PaintMindTrainer', 'create_model', 'optim',
+           'reconstruction', 'register_version', 'set_attention_backend',
+           'ver2cfg']

@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flat parameter tree -> the port's modules.
+"""Weight bridge between the JAX package's flat parameter tree and the
+port's modules, both ways (``load_jax_params`` in, ``to_flat`` out).
 
 Input is a flat ``{'/'-joined key: array}`` dict: the ``.npz`` layout, and
 what ``paintmind_tpu.utils.checkpoint.flatten_tree`` returns for a live JAX
@@ -18,9 +19,12 @@ the tree lacks, raises.
 
 from __future__ import annotations
 
-import torch
+import re
 
-from ..utils.checkpoint import SEP, to_tensor
+import torch
+from torch import nn
+
+from ..utils.checkpoint import SEP, to_numpy, to_tensor
 
 
 def to_state_dict(flat):
@@ -64,3 +68,30 @@ def load_jax_params(module, flat):
                              f'{tuple(own[name].shape)}')
         own[name].copy_(value)
     return module
+
+
+@torch.no_grad()
+def to_flat(module):
+    """The reverse bridge: ``module``'s parameters as the flat
+    ``{'/'-joined key: numpy array}`` tree of the JAX package, ready for
+    ``utils.checkpoint.save_params``.  Linear ``weight`` becomes ``kernel``
+    (transposed to (in, out)), LayerNorm ``weight`` becomes ``scale``, and
+    the leaves of ``layers.{i}`` are restacked along a leading depth axis.
+    A bf16 leaf is its raw uint16 payload under the key plus ``::bf16``."""
+    leaves, stacks = {}, {}
+    for prefix, mod in module.named_modules():
+        for name, value in mod.named_parameters(recurse=False):
+            value = value.detach().cpu()
+            if isinstance(mod, nn.Linear) and name == 'weight':
+                name, value = 'kernel', value.t()
+            elif isinstance(mod, nn.LayerNorm) and name == 'weight':
+                name = 'scale'
+            key = SEP.join(filter(None, [*prefix.split('.'), name]))
+            m = re.fullmatch(r'(.*layers)/(\d+)/(.*)', key)
+            if m:
+                stacks.setdefault(f'{m[1]}/{m[3]}', {})[int(m[2])] = value
+            else:
+                leaves[key] = value
+    for key, by_layer in stacks.items():
+        leaves[key] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+    return dict(to_numpy(k, v) for k, v in leaves.items())

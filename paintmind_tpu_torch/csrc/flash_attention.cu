@@ -12,7 +12,10 @@
 //
 // Layout: q (B, N, H, D), k and v (B, M, H, D), o (B, N, H, D), contiguous.
 // D is fixed at 64 (every attention of the model); fp32 or bf16 in, fp32
-// accumulation and softmax, output in the input type.
+// accumulation and softmax, output in the input type.  When a gradient is
+// wanted the caller passes lse, a (B, H, N) fp32 buffer that receives each
+// row's log-sum-exp of the scaled scores (max + log of the running sum): the
+// backward kernel (flash_attention_bwd.cu) rebuilds P from it tile by tile.
 //
 // Bound on this card: 4*B*H*N*M*D operations.  This first version runs them
 // on the fp32 CUDA cores with broadcast shared-memory reads (no tensor cores,
@@ -36,7 +39,7 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __floa
 template <typename T>
 __global__ void __launch_bounds__(BQ)
 attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-         T* __restrict__ o, int N, int M, int H, float scale) {
+         T* __restrict__ o, float* __restrict__ lse, int N, int M, int H, float scale) {
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
   __shared__ float ss[BK][BQ];  // this tile's scores, [key][query]: no bank conflicts
@@ -127,28 +130,31 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
     const float inv = 1.f / l_run;
 #pragma unroll
     for (int d = 0; d < D; ++d) store_f(op + d, acc[d] * inv);
+    if (lse != nullptr) lse[((long long)b * H + h) * N + qi] = m_run + logf(l_run);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; lse may be null (no gradient wanted).
+// Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int N, int M, int H, int head_dim, float scale,
-                                   int dtype, void* stream) {
+                                   void* lse, int B, int N, int M, int H, int head_dim,
+                                   float scale, int dtype, void* stream) {
   if (head_dim != D || B <= 0 || N <= 0 || M <= 0 || H <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lp = static_cast<float*>(lse);
   if (dtype == 0) {
     attn_fwd<float><<<grid, BQ, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), N, M, H, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lp, N, M, H, scale);
   } else if (dtype == 1) {
     attn_fwd<__nv_bfloat16><<<grid, BQ, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), N, M, H,
-        scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lp, N,
+        M, H, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,10 @@
-"""Stage-2 MaskGIT pipeline, inference half (``paintmind_tpu/models/pipeline.py``):
-frozen VQGAN + conditional transformer + iterative parallel decoding.
+"""Stage-2 MaskGIT pipeline (``paintmind_tpu/models/pipeline.py``): frozen
+VQGAN + conditional transformer, with the training loss and iterative
+parallel decoding.
 
+  * training forward (``pipeline_loss``): encode the image with the frozen
+    VQGAN -> per-sample random masking -> transformer -> masked
+    cross-entropy with label smoothing 0.1 (reference generate.py:110-146);
   * ``generate``: cosine-schedule confidence re-masking (reference
     generate.py:159-198) as a Python loop of ``sample_step``s, then
     ``decode_from_indice`` for the steps asked for;
@@ -16,8 +20,8 @@ Randomness comes from ``torch.Generator``s; the exact sampler also takes
 explicit per-step Gumbel ``noise``, which is how the tests feed it the noise
 the JAX package draws.
 
-Not ported in this slice: the MoE, pipeline-parallel and int8 branches, the
-text towers and the training forward (ROADMAP).
+Not ported yet: the MoE, pipeline-parallel and int8 branches and the text
+towers (ROADMAP).
 """
 
 from __future__ import annotations
@@ -95,6 +99,62 @@ class PipelineConfig:
             dim_head=self.dim_head, mlp_dim=self.mlp_dim,
             num_head=self.num_head, depth=self.depth, dropout=self.dropout,
             context_dim=self.t5_dim, num_classes=self.vqc.n_embed)
+
+
+# ---------------------------------------------------------------------------
+# Training-path functions
+# ---------------------------------------------------------------------------
+
+def random_masking(x, mask_token, mask_ratio, *, generator=None, noise=None):
+    """Per-sample random masking by rank of uniform noise (reference
+    generate.py:78-108).  x: (B, L, D); returns (x_masked, mask) with mask
+    1 = replaced by ``mask_token``.  ``noise``: the (B, L) uniform numbers to
+    rank, else they are drawn from ``generator`` on x's device.
+
+    The number masked is ``int32(float32(L) * float32(mask_ratio))``, at
+    least 1: the product is taken in fp32 as the JAX package takes it, so a
+    ratio on a boundary masks the same count."""
+    n, l, _ = x.shape
+    len_mask = max(int(np.float32(l) * np.float32(mask_ratio)), 1)
+    len_keep = l - len_mask
+    if noise is None:
+        noise = torch.rand(n, l, device=x.device, generator=generator)
+    # stable sorts: equal noise values rank in index order, as jnp.argsort
+    ids_shuffle = torch.argsort(noise, dim=1, stable=True)
+    rank = torch.argsort(ids_shuffle, dim=1, stable=True)
+    keep = rank < len_keep
+    x = torch.where(keep[..., None], x, mask_token.to(x.dtype))
+    return x, 1.0 - keep.float()
+
+
+def masked_ce_loss(logits, labels, mask, label_smoothing=0.1):
+    """Cross-entropy with label smoothing, averaged over the masked
+    positions (reference generate.py:110-123), in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    smooth = -logp.mean(dim=-1)
+    per_tok = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    return (per_tok * mask).sum() / mask.sum()
+
+
+def pipeline_loss(pipe, img, context, mask_ratio, *, generator=None,
+                  noise=None, backend=None, vq_backend='auto', remat=False):
+    """Training forward -> scalar loss (reference generate.py:136-146).
+    ``img``: (B, H, W, C) in [-1, 1], in the compute type; ``context``: the
+    (B, M, t5_dim) text embedding or None (CFG dropout).  The VQGAN is
+    frozen: it encodes under ``no_grad`` (kernel K2 inside) and ``z_q`` is
+    detached, so the gradient reaches ``mask_token`` through the masking
+    ``where`` and the transformer through its logits.  Dropout follows the
+    transformer's training mode and draws from ``generator``, after the
+    masking noise (or only the dropout masks, when ``noise`` is given)."""
+    with torch.no_grad():
+        z_q, _, ids = pipe.vqgan.encode(img, backend=backend,
+                                        vq_backend=vq_backend)
+    x, mask = random_masking(z_q.detach(), pipe.mask_token, mask_ratio,
+                             generator=generator, noise=noise)
+    logits = pipe.transformer(x, context, backend=backend,
+                              generator=generator, remat=remat)
+    return masked_ce_loss(logits, ids, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +384,12 @@ class Pipeline(nn.Module):
     + ``mask_token``: the parameter tree of ``paintmind_tpu``'s Pipeline.
 
     Contexts are precomputed (B, M, t5_dim) embeddings: the text towers
-    are not ported yet.  Always in eval mode."""
+    are not ported yet.  Built frozen and in eval mode, with the weights in
+    ``compute_dtype`` when one is given (the sampling set-up).  For
+    training build it with ``compute_dtype=None`` (fp32 master weights; the
+    layers cast them to the activations' type per call):
+    ``trainable_parameters()`` are ``transformer`` and ``mask_token``, and
+    ``train()`` switches only the transformer, never the VQGAN."""
 
     def __init__(self, config=None, stage1_pretrained=True,
                  stage1_checkpoint_path=None, *, text_encoder='auto', seed=0,
@@ -373,6 +438,19 @@ class Pipeline(nn.Module):
     def device(self):
         return self.mask_token.device
 
+    def train(self, mode=True):
+        """Training mode for the transformer only: the VQGAN stays frozen
+        and in eval mode whatever is asked for."""
+        self.training = mode
+        self.transformer.train(mode)
+        self.vqgan.eval()
+        return self
+
+    def trainable_parameters(self):
+        """``mask_token`` and the transformer's parameters (the VQGAN is
+        frozen, reference generate.py:56)."""
+        return [self.mask_token, *self.transformer.parameters()]
+
     def embed_text(self, text):
         """(B, M, t5_dim) embeddings (numpy or torch) | None -> context on
         this pipeline's device, or None."""
@@ -393,6 +471,22 @@ class Pipeline(nn.Module):
     def to_latent(self, img, text=None):
         z, _, ids = self.vqgan.encode(img)
         return z, ids, self.embed_text(text)
+
+    # -- training --------------------------------------------------------
+
+    def tokens2logits(self, tokens, context=None):
+        tokens = torch.as_tensor(tokens, device=self.device)
+        return self.transformer(tokens, self.embed_text(context))
+
+    def forward(self, img, text=None, mask_ratio=0.75, generator=None):
+        """The training loss of a batch (reference generate.py:136-146)."""
+        img = vm._as_nhwc(img, self.device)
+        return pipeline_loss(self, img, self.embed_text(text), mask_ratio,
+                             generator=generator or self._generator)
+
+    def ids2tokens(self, ids):
+        return ids_to_tokens(self, torch.as_tensor(ids, device=self.device),
+                             self.config)
 
     # -- sampling --------------------------------------------------------
 
@@ -515,6 +609,13 @@ class Pipeline(nn.Module):
         from ..utils.checkpoint import load_flat
         load_jax_params(self, load_flat(path))
         return self
+
+    def save_pretrained(self, path):
+        """Write every parameter as a ``.npz`` in the JAX package's layout,
+        which ``paintmind_tpu``'s ``Pipeline.from_pretrained`` reads."""
+        from ..convert.from_jax import to_flat
+        from ..utils.checkpoint import save_params
+        return save_params(path, to_flat(self))
 
     @property
     def num_params(self):

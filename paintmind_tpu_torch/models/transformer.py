@@ -3,7 +3,8 @@
 learned pos-embed -> depth x {self-attn, cross-attn(context), SwiGLU} ->
 LN -> to_logits (dim -> n_embed).  ``context_proj`` exists only when
 context_dim != dim.  With ``context=None`` the cross-attention sublayers
-self-attend: the unconditional branch of classifier-free guidance."""
+self-attend: the unconditional branch of classifier-free guidance.  In
+training mode the attention sublayers apply dropout at ``cfg.dropout``."""
 
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ class CondTransformer(nn.Module):
                                                   **kw))
         self.layers = make_stack(cfg.depth, cfg.dim, dim_head=cfg.dim_head,
                                  mlp_dim=cfg.mlp_dim, num_head=cfg.num_head,
-                                 cross=True, context_dim=cfg.dim, **kw)
+                                 cross=True, context_dim=cfg.dim,
+                                 dropout=cfg.dropout, **kw)
         self.norm = LayerNorm(cfg.dim, **kw)
         self.to_logits = Linear(cfg.dim, cfg.num_classes, **kw)
         if cfg.has_context_proj:
@@ -61,11 +63,14 @@ class CondTransformer(nn.Module):
         return self.to_logits(h)
 
     def forward(self, x, context=None, *, backend=None, cfg_halves=False,
-                return_hidden=False):
+                return_hidden=False, generator=None, remat=False):
         """x: (B, len_seq, in_dim) latent tokens; context (B, M, context_dim)
         or None.  Returns (B, len_seq, num_classes) logits, or the post-LN
         hidden state when ``return_hidden``.  ``cfg_halves``: x is a
-        [cond; uncond] 2B batch and context is (B, M, context_dim)."""
+        [cond; uncond] 2B batch and context is (B, M, context_dim).
+        ``generator``: source of the dropout masks in training mode.
+        ``remat``: recompute each block in the backward pass instead of
+        keeping its activations."""
         x = self.token_proj(x)
         x = x + self.pos_embed.to(x.dtype)
         if context is not None:
@@ -73,6 +78,7 @@ class CondTransformer(nn.Module):
             if self.cfg.has_context_proj:
                 context = self.context_proj(context)
         x = stack_apply(self.layers, x, context, backend=backend,
-                        cfg_halves=cfg_halves)
+                        cfg_halves=cfg_halves, generator=generator,
+                        remat=remat)
         x = self.norm(x)
         return x if return_hidden else self.head_project(x)

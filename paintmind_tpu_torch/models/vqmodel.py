@@ -199,7 +199,13 @@ class VQModel(nn.Module):
             raise ValueError(
                 f'expected {size}x{size} images (config enc.image_size), '
                 f'got input of shape {tuple(img.shape)}')
-        return img.to(self.compute_dtype or torch.float32)
+        if self.compute_dtype is not None:
+            return img.to(self.compute_dtype)
+        # no compute type set: a bf16 / fp16 batch keeps its type (the
+        # parameters follow the activations), anything else runs in fp32
+        if img.dtype in (torch.bfloat16, torch.float16):
+            return img
+        return img.float()
 
     @torch.no_grad()
     def encode(self, img, *, backend=None, vq_backend='auto'):

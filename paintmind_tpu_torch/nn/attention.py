@@ -8,9 +8,14 @@ classifier-free guidance).  The attention itself runs in the JAX layout
   * ``'flash'`` / ``'auto'``: the K1 wrapper (``ops/flash_attention``), which
     launches the kernel on a CUDA tensor and takes the plain version on a
     CPU tensor.  Unlike the JAX package, ``'auto'`` needs no shape gate: K1
-    takes any N and M (it masks the ragged edges itself).
-  * ``'plain'``: the plain PyTorch version on any device (the reference the
-    kernel is held against).
+    takes any N and M (it masks the ragged edges itself).  When a gradient
+    flows, the wrapper's ``autograd.Function`` runs kernel K4 backward.
+  * ``'plain'``: the plain PyTorch version on any device under ordinary
+    autograd (the reference the kernel path is held against).
+
+In training mode ``forward`` applies dropout to the output projection, from
+an explicit generator; ``forward_cfg_halves`` is a sampling-only path and
+stays deterministic, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_plain
 from .core import Linear
+from .core import dropout as apply_dropout
 
 BACKENDS = ('auto', 'plain', 'flash')
 _backend = 'auto'
@@ -49,12 +55,13 @@ def attention_core(q, k, v, scale, backend=None):
 
 class Attention(nn.Module):
     def __init__(self, query_dim, *, context_dim=None, heads=8, dim_head=64,
-                 device=None, dtype=None):
+                 dropout=0.0, device=None, dtype=None):
         super().__init__()
         inner = heads * dim_head
         context_dim = query_dim if context_dim is None else context_dim
         self.heads = heads
         self.dim_head = dim_head
+        self.dropout = dropout
         kw = dict(device=device, dtype=dtype)
         self.to_q = Linear(query_dim, inner, bias=False, **kw)
         self.to_k = Linear(context_dim, inner, bias=False, **kw)
@@ -64,14 +71,17 @@ class Attention(nn.Module):
     def _split(self, t):
         return t.reshape(t.shape[0], t.shape[1], self.heads, self.dim_head)
 
-    def forward(self, x, context=None, *, backend=None):
-        """x: (B, N, Dq); context: (B, M, Dc) or None (self-attention)."""
+    def forward(self, x, context=None, *, backend=None, generator=None):
+        """x: (B, N, Dq); context: (B, M, Dc) or None (self-attention).
+        ``generator`` feeds the dropout mask in training mode."""
         ctx = x if context is None else context
         q = self._split(self.to_q(x))
         k = self._split(self.to_k(ctx))
         v = self._split(self.to_v(ctx))
         out = attention_core(q, k, v, self.dim_head ** -0.5, backend)
-        return self.to_out(out.reshape(x.shape[0], x.shape[1], -1))
+        out = self.to_out(out.reshape(x.shape[0], x.shape[1], -1))
+        return apply_dropout(out, self.dropout, generator=generator,
+                             training=self.training)
 
     def forward_cfg_halves(self, x, context, *, backend=None):
         """Cross-attention for a CFG-fused batch: ``x`` (2B, N, Dq) holds

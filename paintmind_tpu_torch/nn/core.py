@@ -2,8 +2,7 @@
 
 Numerics policy (as in ``paintmind_tpu/nn/core.py``): a layer computes in
 the dtype of its incoming activations, casting its own parameters to it,
-except LayerNorm statistics, which always run in fp32.  Inference only:
-dropout is the identity and is not represented.
+except LayerNorm statistics, which always run in fp32.
 """
 
 from __future__ import annotations
@@ -34,6 +33,20 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape,
                          self.weight.float(), self.bias.float(), self.eps)
         return y.to(x.dtype)
+
+
+def dropout(x, rate, *, generator=None, training=False):
+    """Inverted dropout (``paintmind_tpu/nn/core.py::dropout``): keep each
+    element with probability ``1 - rate`` and scale the kept ones by
+    ``1 / (1 - rate)``.  The keep-mask is drawn on ``x``'s device from
+    ``generator`` (torch's default generator of that device when None).
+    The identity when not training or when ``rate`` is 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 @torch.no_grad()

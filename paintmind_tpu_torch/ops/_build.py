@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC / 'build'
-KERNELS = ('flash_attention', 'vq_lookup')
+KERNELS = ('flash_attention', 'flash_attention_bwd', 'vq_lookup')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

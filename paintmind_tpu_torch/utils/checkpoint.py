@@ -4,9 +4,10 @@ The JAX package saves a flat archive of ``/``-joined keys
 (``paintmind_tpu/utils/checkpoint.py``).  numpy has no bfloat16, so a bf16
 leaf is stored as its raw uint16 payload under the key plus ``::bf16``;
 artifacts written before that tag hold the raw two bytes as an opaque
-``V2`` dtype.  Both come back here as ``torch.bfloat16`` tensors.  Orbax
-directories and reference ``.pt`` files are not read by the port yet
-(ROADMAP).
+``V2`` dtype.  Both come back here as ``torch.bfloat16`` tensors, and
+``save_params`` writes the tagged form, so an archive written here loads in
+the JAX package.  Orbax directories and reference ``.pt`` files are not read
+by the port yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -44,3 +45,23 @@ def load_flat(path):
             'directories and .pt files wait for a later slice (ROADMAP)')
     with np.load(path) as data:
         return dict(to_tensor(k, data[k]) for k in data.files)
+
+
+def to_numpy(key, value):
+    """(key, CPU tensor) -> (key, array) as the archive stores it: a bf16
+    tensor becomes its uint16 payload under the key plus ``::bf16``."""
+    value = value.contiguous()
+    if value.dtype == torch.bfloat16:
+        return key + BF16_TAG, value.view(torch.int16).numpy().view(np.uint16)
+    return key, value.numpy()
+
+
+def save_params(path, flat):
+    """Write a flat ``{key: array}`` tree (``convert.from_jax.to_flat``) as
+    the JAX package's ``.npz`` archive."""
+    path = str(path)
+    if not path.endswith('.npz'):
+        raise NotImplementedError(
+            f'{path!r}: the port writes .npz parameter archives only')
+    np.savez(path, **flat)
+    return path

@@ -1,0 +1,416 @@
+"""Training harness: PaintMindTrainer (stage 2), with the signature and the
+defaults of ``paintmind_tpu/utils/trainer.py`` (reference
+paintmind/utils/trainer.py:291-437).
+
+  reference                         ->  here
+  ---------------------------------------------------------------------
+  autocast bf16/fp16                ->  bf16 activations + fp32 master params
+  accumulate() context              ->  a loop over microbatches in the step
+  clip_grad_norm_ at sync           ->  clipping inside the optimizer's step
+  timm CosineLRScheduler            ->  optim.build_scheduler (same piecewise)
+  torch AdamW / Lion                ->  optim.adamw / optim.lion
+  state_dict .pt snapshots          ->  one file of full train state (model,
+                                        optimizer, EMA, step and every random
+                                        generator: a true resume) plus a
+                                        .npz model export that both packages
+                                        load with from_pretrained
+  tensorboard via accelerator.log   ->  MetricWriter (same metric names)
+  make_grid eval dumps              ->  utils.image_grid (nrow=6, (-1,1))
+
+One process, one device.  ``VQGANTrainer`` (stage 1) and the multi-GPU
+options are not ported yet (ROADMAP queue A, 7b and 10).
+"""
+
+from __future__ import annotations
+
+import os
+import random as pyrandom
+import re
+import signal
+
+import numpy as np
+import torch
+
+from .. import optim
+from ..models.pipeline import _not_ported
+from ..train import steps as train_steps
+from .data import DataLoader, random_split
+from .image_grid import save_image_grid
+from .logging import Log, MetricWriter
+
+
+def _dtype_of(mixed_precision):
+    if mixed_precision in ('bf16', 'fp16'):  # fp16 -> bf16: no loss scaling
+        return torch.bfloat16
+    return None
+
+
+def _micro_schedule(base, grad_accum):
+    """Rescale an LR schedule from optimizer-update counts to the
+    reference's microbatch timeline.
+
+    The reference steps its scheduler once per DataLoader iteration
+    (trainer.py:200,224,397) while the optimizer updates every
+    ``grad_accum`` iterations; the optimizer here counts *updates*, so the
+    schedule must advance ``grad_accum`` microbatch ticks per update to
+    keep the warmup/decay timeline identical."""
+    if grad_accum == 1:
+        return base
+    return lambda count: base(count * grad_accum)
+
+
+def masked_p_generator(rng=None):
+    """arccos-distributed mask ratio (reference trainer.py:286-288), from
+    ``rng`` (a ``numpy.random.Generator``) or numpy's global state."""
+    u = np.random.rand() if rng is None else rng.random()
+    return float(np.cos(0.5 * np.pi * u))
+
+
+class _TrainerBase:
+    _ckpt_prefix = 'state'
+    _preempted = False
+    keep_last = None  # retention policy: None = keep every checkpoint
+
+    def _setup_dirs(self, result_folder):
+        self.result_folder = result_folder or './results'
+        self.model_saved_dir = os.path.join(self.result_folder, 'models')
+        self.image_saved_dir = os.path.join(self.result_folder, 'images')
+        os.makedirs(self.model_saved_dir, exist_ok=True)
+        os.makedirs(self.image_saved_dir, exist_ok=True)
+
+    # subclasses: everything a resume needs, and its way back in
+    def _state_dict(self):
+        raise NotImplementedError
+
+    def _load_state_dict(self, state):
+        raise NotImplementedError
+
+    def _save_state(self, name):
+        """One ``torch.save`` file, written under a temporary name and then
+        renamed: a file that is there is a complete generation."""
+        path = os.path.abspath(os.path.join(self.model_saved_dir, name))
+        tmp = f'{path}.tmp-{os.getpid()}'
+        torch.save(self._state_dict(), tmp)
+        os.replace(tmp, path)
+        return path
+
+    def _restore_state(self, path):
+        # a train state holds optimizer and generator states besides
+        # tensors, so it is a full pickle: load only files a trainer wrote
+        state = torch.load(path, map_location='cpu', weights_only=False)
+        self._load_state_dict(state)
+        return self
+
+    def _prune_checkpoints(self, prefix):
+        """Retention: keep only the newest ``keep_last`` checkpoint
+        generations (a generation is ``<prefix>_state_<N>.pt`` plus the
+        ``<prefix>_step_<N>.npz`` model export)."""
+        if not self.keep_last:
+            return
+        pat = re.compile(re.escape(prefix)
+                         + r'_(state|step)_(\d+)\.(pt|npz)$')
+        gens = {}
+        for name in os.listdir(self.model_saved_dir):
+            m = pat.match(name)
+            if m:
+                gens.setdefault(int(m.group(2)), []).append(name)
+        for step in sorted(gens)[:-self.keep_last]:
+            for name in gens[step]:
+                os.remove(os.path.join(self.model_saved_dir, name))
+
+    # -- preemption safety ----------------------------------------------
+
+    def _install_preemption_handler(self):
+        """SIGTERM -> set a flag the train loop checks at the next step
+        boundary (a save from inside a signal handler could interrupt a
+        write in flight).  Returns a restore-callback for ``finally``."""
+        self._preempted = False
+
+        def handler(signum, frame):
+            self._preempted = True
+
+        try:
+            prev = signal.signal(signal.SIGTERM, handler)
+        except ValueError:      # not the main thread: no handler possible
+            return lambda: None
+        return lambda: signal.signal(signal.SIGTERM, prev)
+
+    def _handle_preemption(self):
+        """Step-boundary check: on SIGTERM, save the full train state and
+        tell the loops to exit."""
+        if not self._preempted:
+            return False
+        print(f'SIGTERM received at step {self.steps}: saving state for a '
+              "resume (resume('auto') picks it up)")
+        self.save()
+        return True
+
+    def _auto_resume_path(self):
+        """Newest complete ``<prefix>_state_<N>.pt``, or None."""
+        pat = re.compile(re.escape(self._ckpt_prefix) + r'_state_(\d+)\.pt$')
+        gens = [(int(m.group(1)), name)
+                for name in os.listdir(self.model_saved_dir)
+                if (m := pat.match(name))]
+        if not gens:
+            return None
+        return os.path.join(self.model_saved_dir, max(gens)[1])
+
+    def resume(self, path='auto'):
+        """Resume assumes the same grad_accum_steps as the saving run: the
+        state counts optimizer updates, ``self.steps`` microbatches.
+        ``path='auto'`` picks the newest complete state file under the
+        trainer's result folder (preemption recovery)."""
+        if path == 'auto':
+            path = self._auto_resume_path()
+            if path is None:
+                raise FileNotFoundError(
+                    f'no {self._ckpt_prefix}_state_* checkpoint under '
+                    f'{self.model_saved_dir} to auto-resume from')
+        self._restore_state(path)
+        self.steps = self.state['step'] * self.grad_accum
+        return self
+
+
+class PaintMindTrainer(_TrainerBase):
+    """(reference trainer.py:291-437).  ``model`` is a ``Pipeline`` built
+    with ``compute_dtype=None`` (fp32 master weights); it is trained in
+    place.  With ``ema_decay`` the model keeps the raw weights and the
+    averaged ones are swapped in for ``evaluate()`` and for the ``.npz``
+    export of ``save()``."""
+
+    _ckpt_prefix = 'paintmind'
+
+    def __init__(self, model, dataset, num_epoch, valid_size=10,
+                 optim_name=None, lr=6e-5, lr_min=1e-5, warmup_steps=5000,
+                 warmup_lr_init=1e-6, decay_steps=80000, weight_decay=0.05,
+                 batch_size=32, num_workers=8, pin_memory=False,
+                 grad_accum_steps=1, mixed_precision='bf16',
+                 max_grad_norm=1.0, save_every=10000, sample_every=1000,
+                 result_folder=None, log_dir='./log', seed=42, mesh=None,
+                 cfg_p=0.1, log_every=1, text_embedder=None, remat=False,
+                 zero_sharding=False, ema_decay=None, keep_last=None,
+                 pp_microbatches=None, **kwargs):
+        # reference kwarg is `optim`; shadowed by the optim module import
+        optim_name = optim_name or kwargs.pop('optim', 'lion')
+        del pin_memory
+        for name, value in (('mesh', mesh), ('zero_sharding', zero_sharding),
+                            ('pp_microbatches', pp_microbatches)):
+            if value:
+                raise _not_ported(f'PaintMindTrainer({name}=...): multi-GPU '
+                                  'training', 10)
+        self.model = model
+        self.device = model.device
+        self.num_epoch = num_epoch
+        self.save_every = save_every
+        self.keep_last = keep_last
+        self.sample_every = sample_every
+        self.cfg_p = cfg_p
+        self.log_dir = log_dir
+        self.log_every = log_every
+        self.grad_accum = grad_accum_steps
+        self._setup_dirs(result_folder)
+        self._text_embedder = text_embedder
+
+        train_loader = kwargs.pop('train_loader', None)
+        valid_loader = kwargs.pop('valid_loader', None)
+        if kwargs:
+            raise TypeError(f'unexpected arguments {sorted(kwargs)}')
+        if train_loader is not None:
+            # externally built loaders; the train loader must yield
+            # batch_size·grad_accum items per host step
+            if valid_loader is None:
+                raise ValueError('train_loader also requires valid_loader')
+            self.train_dl, self.valid_dl = train_loader, valid_loader
+        else:
+            train_size = len(dataset) - valid_size
+            self.train_ds, self.valid_ds = random_split(
+                dataset, [train_size, valid_size], seed=seed)
+            print(f'train dataset size: {train_size}, '
+                  f'valid dataset size: {valid_size}')
+            # batch_size·accum images per host step -> one update sees the
+            # same effective batch as the reference's accumulate() recipe.
+            self.train_dl = DataLoader(self.train_ds,
+                                       batch_size * grad_accum_steps,
+                                       shuffle=True, seed=seed,
+                                       num_workers=num_workers)
+            self.valid_dl = DataLoader(self.valid_ds, 6, shuffle=False,
+                                       num_workers=num_workers)
+
+        # microbatch-unit horizon; see _micro_schedule
+        iters = max(len(self.train_dl), 1) * grad_accum_steps
+        self.scheduler = optim.build_scheduler(
+            num_epoch, iters, lr, lr_min, warmup_steps, warmup_lr_init,
+            decay_steps)
+        tx_sched = _micro_schedule(self.scheduler, grad_accum_steps)
+        params = model.trainable_parameters()  # the VQGAN is frozen
+        if optim_name == 'lion':
+            opt = optim.lion(params, tx_sched, (0.9, 0.99),
+                             weight_decay=weight_decay,
+                             max_grad_norm=max_grad_norm)
+        elif optim_name == 'adamw':
+            opt = optim.adamw(params, tx_sched, (0.9, 0.96),
+                              weight_decay=weight_decay,
+                              max_grad_norm=max_grad_norm)
+        else:
+            raise NotImplementedError(optim_name)
+
+        self.ema_decay = ema_decay
+        self.state = train_steps.init_pipeline_train_state(
+            model, opt, ema_decay=ema_decay, seed=seed)
+        self._step = train_steps.make_pipeline_train_step(
+            model, opt, grad_accum=grad_accum_steps,
+            compute_dtype=_dtype_of(mixed_precision), remat=remat,
+            ema_decay=ema_decay, state=self.state)
+        # the host-side draws (CFG text dropout, mask ratio) have their own
+        # generators so that a resumed run repeats them
+        self._py_rng = pyrandom.Random(seed)
+        self._np_rng = np.random.default_rng(seed)
+        self.steps = 0
+
+        n_train = sum(p.numel() for p in params)
+        print(f'number of learnable parameters: {n_train // int(1e6)}M')
+
+    # -- state for save / resume ----------------------------------------
+
+    def _state_dict(self):
+        state = {
+            'model': self.model.state_dict(),
+            'opt': self.state['opt'].state_dict(),
+            'step': self.state['step'],
+            'generator': self.state['generator'].get_state(),
+            'sample_generator': self.model._generator.get_state(),
+            'py_rng': self._py_rng.getstate(),
+            'np_rng': self._np_rng.bit_generator.state,
+        }
+        if 'ema' in self.state:
+            state['ema'] = self.state['ema']
+        return state
+
+    @torch.no_grad()
+    def _load_state_dict(self, state):
+        if ('ema' in state) != ('ema' in self.state):
+            raise ValueError('the checkpoint and this trainer disagree on '
+                             'ema_decay')
+        self.model.load_state_dict(state['model'])
+        self.state['opt'].load_state_dict(state['opt'])
+        self.state['step'] = state['step']
+        self.state['generator'].set_state(state['generator'])
+        self.model._generator.set_state(state['sample_generator'])
+        self._py_rng.setstate(state['py_rng'])
+        self._np_rng.bit_generator.state = state['np_rng']
+        for e, saved in zip(self.state.get('ema', ()), state.get('ema', ())):
+            e.copy_(saved)
+
+    # -- one host step --------------------------------------------------
+
+    def _embed(self, text):
+        """captions -> (B, 77, t5_dim) embeddings on the device, or None."""
+        if text is None:
+            return None
+        if isinstance(text, (np.ndarray, torch.Tensor)) and text.ndim == 3:
+            ctx = text
+        elif self._text_embedder is not None:
+            ctx = self._text_embedder(text)
+        else:
+            return self.model.embed_text(list(text))
+        return torch.as_tensor(ctx, dtype=torch.float32, device=self.device)
+
+    def train_step(self, batch):
+        """One optimizer update on ``batch`` (images or (images, captions),
+        batch_size · grad_accum_steps of them); returns the step's metrics
+        with ``loss`` still on the device."""
+        imgs, text = batch if isinstance(batch, (tuple, list)) else (batch, None)
+        if self._py_rng.random() < self.cfg_p:  # CFG dropout (ref :387-388)
+            text = None
+        context = self._embed(text)
+        imgs = torch.as_tensor(imgs, dtype=torch.float32, device=self.device)
+        mask_ratio = masked_p_generator(self._np_rng)
+        metrics = self._step(imgs, context, mask_ratio)
+        self.steps += self.grad_accum
+        return metrics
+
+    def train(self):
+        self.log = Log()
+        writer = self._writer = MetricWriter(self.log_dir, 'paintmind')
+        restore_sig = self._install_preemption_handler()
+        try:
+            self._train_loop(writer)
+        finally:
+            restore_sig()
+            writer.close()
+        if self.steps != getattr(self, '_last_saved_steps', None):
+            self.save()  # final partial save interval
+        self.model.eval()
+        print('Train finished!'
+              if not self._preempted else 'Train preempted: state saved.')
+
+    def _train_loop(self, writer):
+        for epoch in range(self.num_epoch):
+            for batch in self.train_dl:
+                if self._handle_preemption():
+                    return
+                prev = self.steps
+                metrics = self.train_step(batch)
+
+                if self.steps // self.log_every > prev // self.log_every:
+                    m = {'loss': float(metrics['loss']),
+                         'lr': float(self.scheduler(self.steps))}
+                    if not np.isfinite(m['loss']):  # failure detection (ext.)
+                        raise FloatingPointError(
+                            f'non-finite loss at step {self.steps}: '
+                            'resume from the last checkpoint with .resume()')
+                    self.log.update(m)
+                    writer.log(m, self.steps)
+
+                if self.steps // self.sample_every > prev // self.sample_every:
+                    self.evaluate()
+                if self.steps // self.save_every > prev // self.save_every:
+                    self.save()
+
+    # -- export and evaluation ------------------------------------------
+
+    @torch.no_grad()
+    def _swap_ema(self):
+        """Exchange the trainable parameters with their averages (twice is
+        the identity)."""
+        for p, e in zip(self.model.trainable_parameters(),
+                        self.state.get('ema', ())):
+            raw = p.detach().clone()
+            p.copy_(e)
+            e.copy_(raw)
+
+    def save(self):
+        """Model-only ``.npz`` (the averaged weights when EMA is on) plus
+        the full train state."""
+        self._last_saved_steps = self.steps
+        self._swap_ema()
+        try:
+            self.model.save_pretrained(os.path.join(
+                self.model_saved_dir, f'paintmind_step_{self.steps}.npz'))
+        finally:
+            self._swap_ema()
+        path = self._save_state(f'paintmind_state_{self.steps}.pt')
+        self._prune_checkpoints('paintmind')
+        return path
+
+    def evaluate(self):
+        self.model.eval()
+        self._swap_ema()
+        try:
+            for i, batch in enumerate(self.valid_dl):
+                imgs, text = (batch if isinstance(batch, (tuple, list))
+                              else (batch, None))
+                context = self._embed(text)
+                # caption-less datasets eval unconditionally: still sample a
+                # full batch (generate defaults to ONE sample with no context)
+                gens = self.model.generate(text=context, timesteps=18,
+                                           temperature=1.0, topk=5,
+                                           save_interval=2,
+                                           num_samples=len(imgs))
+                all_imgs = np.concatenate(
+                    [np.asarray(imgs, np.float32)]
+                    + [g.float().cpu().numpy() for g in gens], axis=0)
+                save_image_grid(all_imgs, os.path.join(
+                    self.image_saved_dir, f'step_{self.steps}_{i}.png'))
+        finally:
+            self._swap_ema()

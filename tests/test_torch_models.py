@@ -315,8 +315,9 @@ def test_entry_points_default_to_the_card():
 
 
 def test_import_hygiene():
-    """The package and chip_smoke.py's import block load neither JAX nor
-    anything of paintmind_tpu."""
+    """The package (every module of it, the training ones included) and
+    chip_smoke.py's import block load neither JAX, optax, orbax nor anything
+    of paintmind_tpu."""
     code = (
         'import importlib, importlib.util, pkgutil, sys\n'
         'import paintmind_tpu_torch as pkg\n'
@@ -325,8 +326,12 @@ def test_import_hygiene():
         'spec = importlib.util.spec_from_file_location("chip_smoke", '
         '"chip_smoke.py")\n'
         'spec.loader.exec_module(importlib.util.module_from_spec(spec))\n'
-        'bad = [m for m in sys.modules if m.startswith("jax") or '
-        'm == "paintmind_tpu" or m.startswith("paintmind_tpu.")]\n'
+        'bad = [m for m in sys.modules if m.split(".")[0] in '
+        '("jax", "jaxlib", "optax", "orbax", "paintmind_tpu")]\n'
+        'need = ["paintmind_tpu_torch.utils.trainer", '
+        '"paintmind_tpu_torch.train.steps", '
+        '"paintmind_tpu_torch.optim.optimizers"]\n'
+        'bad += [m for m in need if m not in sys.modules]\n'
         'print(len(sys.modules), bad)\n'
         'sys.exit(1 if bad else 0)\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
