@@ -8,7 +8,10 @@ exits non-zero with no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. builds kernels K1-K4 from the sources in this checkout (one ``nvcc``
-     per CUDA source, all at once; the Triton kernel by its first launch);
+     per CUDA source, all at once; the Triton kernel by its first launch),
+     prints each CUDA kernel's registers, shared memory and spills, and
+     checks in the compiled code that the bf16 attention kernels run their
+     products on the tensor cores (``HGMMA`` in the SASS) and spill nothing;
   3. holds each kernel against its plain PyTorch version at the main
      path's shapes, and times kernel, plain version and (where one exists)
      the PyTorch library call, beside the least time the card could take;
@@ -34,6 +37,7 @@ Needs one CUDA card; exits non-zero when there is none.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -132,62 +136,102 @@ def check(cond, what):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_k1(g):
-    """Stage-2 self (H = 16, M = 1024), cross (M = 77) and VQGAN (H = 8)
-    attention at B = 8, fp32 and bf16.  Times the main path's most frequent
-    call: stage-2 self-attention in bf16."""
-    scale = 64 ** -0.5
-    entry = None
-    for label, m, h in (('stage-2 self', 1024, 16), ('stage-2 cross', 77, 16),
-                        ('vqgan self', 1024, 8)):
-        for dtype in (torch.float32, torch.bfloat16):
-            b, n, d = 8, 1024, 64
-            q = torch.randn(b, n, h, d, device='cuda', generator=g).to(dtype)
-            k = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
-            v = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
-            out = fa.flash_attention(q, k, v, scale)
-            ref = fa.flash_attention_plain(q, k, v, scale)
-            err = (out.float() - ref.float()).abs()
-            max_err, mean_err = err.max().item(), err.mean().item()
-            if dtype == torch.float32:
-                check(max_err <= 1e-4, f'K1 {label} fp32 max err {max_err}')
-            else:
-                check(mean_err <= 5e-3, f'K1 {label} bf16 mean err {mean_err}')
-            ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), 10)
-            plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale), 5)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                scale=scale), 10)
-            nbytes = (2 * b * n * h * d + 2 * b * m * h * d) * q.element_size()
-            bms, by = bound(nbytes, 4 * b * h * n * m * d, dtype)
-            log(f'K1 {label} B={b} N={n} M={m} H={h} D={d} {str(dtype)[6:]}: '
-                f'max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} '
-                f'ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} '
-                f'bound_ms={bms:.4f} ({by})')
-            if label == 'stage-2 self' and dtype == torch.bfloat16:
-                entry = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by, library_ms=lib_ms)
-            del q, k, v, out, ref, err
-    return entry
-
-
 def mean_rel(got, ref):
     """Mean absolute error over the reference's mean magnitude."""
     got, ref = got.float(), ref.float()
     return ((got - ref).abs().mean() / ref.abs().mean()).item()
 
 
+def check_k1(g):
+    """K1 against ``flash_attention_plain`` at stage-2 self (H = 16,
+    M = 1024), cross (M = 77) and VQGAN (H = 8) attention at B = 8 and a
+    ragged case (B = 2, N = 200, M = 77, H = 3), fp32 and bf16.  Gates: fp32
+    max abs <= 1e-4; bf16 mean abs <= 5e-3 (the kernel rounds the
+    unnormalised p to bf16 and divides by the fp32 sum afterwards, the plain
+    version rounds the normalised probabilities: measured 3e-4 at most, one
+    bf16 rounding of values below 1), and mean abs <= 1e-5 against the tiled
+    emulation, which rounds where the kernel does (measured 2e-7: only the
+    order of the fp32 sums and the hardware's exp2 differ).  The log-sum-exp
+    output against ``torch.logsumexp`` of the fp32 scaled scores: max abs
+    <= 1e-3 in bf16 (measured 1e-6), <= 1e-5 in fp32.  Times every shape;
+    the result line carries the main path's most frequent call, stage-2
+    self-attention in bf16."""
+    scale = 64 ** -0.5
+    entry = None
+    for label, b, n, m, h in (('stage-2 self', 8, 1024, 1024, 16),
+                              ('stage-2 cross', 8, 1024, 77, 16),
+                              ('vqgan self', 8, 1024, 1024, 8),
+                              ('ragged', 2, 200, 77, 3)):
+        for dtype in (torch.float32, torch.bfloat16):
+            d = 64
+            q = torch.randn(b, n, h, d, device='cuda', generator=g).to(dtype)
+            k = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
+            v = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
+            out = fa.flash_attention(q, k, v, scale)
+            out2, lse = fa._launch_forward(q, k, v, scale, with_lse=True)
+            check(torch.equal(out, out2), f'K1 {label}: asking for the '
+                  'log-sum-exp changed the output')
+            ref = fa.flash_attention_plain(q, k, v, scale)
+            err = (out.float() - ref.float()).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            want_lse = torch.logsumexp(torch.einsum(
+                'bnhd,bmhd->bhnm', q.float(), k.float()) * scale, dim=-1)
+            lse_err = (lse - want_lse).abs().max().item()
+            check(bool(torch.isfinite(out).all()), f'K1 {label} not finite')
+            if dtype == torch.float32:
+                check(max_err <= 1e-4, f'K1 {label} fp32 max err {max_err}')
+                check(lse_err <= 1e-5, f'K1 {label} fp32 lse err {lse_err}')
+                tiled = ''
+            else:
+                emu = fa.flash_attention_tiled(q, k, v, scale)[0]
+                emu_err = (out.float() - emu.float()).abs().mean().item()
+                check(mean_err <= 5e-3, f'K1 {label} bf16 mean err {mean_err}')
+                check(emu_err <= 1e-5, f'K1 {label} bf16 mean err against '
+                      f'the tiled emulation {emu_err}')
+                check(lse_err <= 1e-3, f'K1 {label} bf16 lse err {lse_err}')
+                tiled = f' vs_tiled_mean_abs={emu_err:.3e}'
+            line = (f'K1 {label} B={b} N={n} M={m} H={h} D={d} '
+                    f'{str(dtype)[6:]}: max_abs_err={max_err:.3e} '
+                    f'mean_abs_err={mean_err:.3e}{tiled} '
+                    f'lse_max_abs_err={lse_err:.3e}')
+            if label != 'ragged':
+                ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
+                plain_ms = time_ms(
+                    lambda: fa.flash_attention_plain(q, k, v, scale), 5)
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    scale=scale), 20)
+                nbytes = ((2 * b * n * h * d + 2 * b * m * h * d)
+                          * q.element_size())
+                bms, by = bound(nbytes, 4 * b * h * n * m * d, dtype)
+                line += (f' ms={ms:.4f} plain_ms={plain_ms:.4f} '
+                         f'sdpa_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}); '
+                         f'{CARD}')
+                if label == 'stage-2 self' and dtype == torch.bfloat16:
+                    entry = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            log(line)
+            del q, k, v, out, out2, lse, ref, err, want_lse
+    return entry
+
+
 def check_k4(g):
     """K4 against ``flash_attention_backward_plain`` at the training path's
     shapes: stage-2 self (B = 8, N = M = 1024, H = 16) and cross (M = 77)
     attention in fp32 and bf16, and a ragged case (N = 200, M = 77).  Gates:
-    mean relative error per gradient <= 1e-5 in fp32 and <= 1e-3 in bf16
-    (measured on an H100: 8e-7 and 7e-7; the plain version keeps P and dS in
-    fp32 as the kernel does, so in bf16 what is left is a last-bit
-    difference where the two round a gradient).  ``torch.autograd.grad`` through
-    ``flash_attention`` must give the bits of a direct K4 call.  Times the
-    main path's most frequent call, stage-2 self-attention in bf16, and the
-    backward of ``F.scaled_dot_product_attention`` on a retained graph."""
+    mean relative error per gradient <= 1e-5 in fp32 (measured on an H100:
+    4e-7) and <= 1e-3 in bf16 (measured 7e-6).  The plain version rounds P
+    and dS to bf16 before the products that consume them, as the kernel
+    does, so what is left in bf16 is where the two differ in fp32 before a
+    rounding (the order of the sums, the hardware's exp2, lse from K1
+    against an exact softmax), which now and then moves a P, a dS or a
+    gradient by one bf16 step.  Against the tiled emulation, which also
+    shares the kernel's lse: <= 1e-4 (measured 4e-6).
+    ``torch.autograd.grad`` through ``flash_attention`` must give the bits
+    of a direct K4 call, and a second direct call the same bits again.
+    Times both training shapes; the result line carries the main path's
+    most frequent call, stage-2 self-attention in bf16, beside the backward
+    of ``F.scaled_dot_product_attention`` on a retained graph."""
     scale = 64 ** -0.5
     entry = None
     for label, b, n, m, h in (('stage-2 self', 8, 1024, 1024, 16),
@@ -208,6 +252,17 @@ def check_k4(g):
             gate = 1e-5 if dtype == torch.float32 else 1e-3
             check(max(errs) <= gate and all(torch.isfinite(a).all() for a in got),
                   f'K4 {label} {dtype}: mean rel err dq, dk, dv {errs}')
+            again = fa.flash_attention_backward(q, k, v, go, scale, lse)
+            check(all(torch.equal(a, r) for a, r in zip(again, got)),
+                  f'K4 {label} {dtype}: two calls differ')
+            tiled = ''
+            if dtype == torch.bfloat16:
+                emu = fa.flash_attention_backward_tiled(q, k, v, go, scale, lse)
+                emu_err = max(mean_rel(a, r) for a, r in zip(got, emu))
+                check(emu_err <= 1e-4, f'K4 {label} bf16 against the tiled '
+                      f'emulation: mean rel err {emu_err}')
+                tiled = f' vs_tiled_mean_rel={emu_err:.3e}'
+                del emu
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             o2 = fa.flash_attention(*leaves, scale)
             check(o2.grad_fn is not None, 'flash_attention result is detached')
@@ -216,10 +271,10 @@ def check_k4(g):
                   f'K4 {label} {dtype}: autograd.grad differs from a direct call')
             line = (f'K4 {label} B={b} N={n} M={m} H={h} D={d} {str(dtype)[6:]}: '
                     f'mean_rel_err dq={errs[0]:.3e} dk={errs[1]:.3e} '
-                    f'dv={errs[2]:.3e} max_abs_err={max_abs:.3e}')
+                    f'dv={errs[2]:.3e} max_abs_err={max_abs:.3e}{tiled}')
             if label != 'ragged':
                 ms = time_ms(lambda: fa.flash_attention_backward(
-                    q, k, v, go, scale, lse), 5)
+                    q, k, v, go, scale, lse), 10)
                 plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(
                     q, k, v, go, scale), 3)
                 lq, lk, lv = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -234,13 +289,14 @@ def check_k4(g):
                           * q.element_size() + lse.numel() * 4)
                 bms, by = bound(nbytes, 10 * b * h * n * m * d, dtype)
                 line += (f' ms={ms:.4f} plain_ms={plain_ms:.4f} '
-                         f'sdpa_bwd_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})')
+                         f'sdpa_bwd_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}); '
+                         f'{CARD}')
                 if label == 'stage-2 self' and dtype == torch.bfloat16:
                     entry = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bms, bound_by=by, library_ms=lib_ms)
                 del lq, lk, lv, lo, lg
             log(line)
-            del q, k, v, go, lse, got, ref, leaves, o2, auto
+            del q, k, v, go, lse, got, again, ref, leaves, o2, auto
     return entry
 
 
@@ -515,7 +571,8 @@ def training(totals):
     def grads():
         return {n: named[n].grad.clone() for n in watched}
 
-    loss_and_grads(pipe, imgs, ctx, noise)  # warm-up: cuBLAS, allocator
+    loss_w = loss_and_grads(pipe, imgs, ctx, noise)  # warm-up: cuBLAS, allocator
+    grads_w = grads()
     loss_k, _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise),
                       {'K1': enc + 2 * depth, 'K2': 1, 'K3': 0,
                        'K4': 2 * depth}, totals,
@@ -525,6 +582,12 @@ def training(totals):
               and bool(p.grad.abs().max() > 0),
               'a trainable parameter has no finite, non-zero gradient')
     grads_k = grads()
+    check(loss_w == loss_k and all(torch.equal(grads_w[n], grads_k[n])
+                                   for n in watched),
+          f'two runs of one microbatch differ: loss {loss_w} vs {loss_k}')
+    del grads_w
+    log('train microbatch: a second run gives the same loss and gradients, '
+        'bit for bit')
     t0 = time.perf_counter()
     loss_and_grads(pipe, imgs, ctx, noise, remat=True)
     log(f'first remat call: {time.perf_counter() - t0:.3f} s (one-time '
@@ -596,7 +659,9 @@ def training(totals):
     sec = float(np.median(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f'train updates (Lion, lr 1e-4, dropout {cfg.dropout}, 2 microbatches '
-        f'of B=8): losses {" ".join(f"{x:.4f}" for x in losses)}; '
+        f'of B=8): losses {" ".join(f"{x:.4f}" for x in losses)} (with P and '
+        f'dS kept in fp32 by the CUDA-core kernels: 9.1262 first, 8.2962 '
+        f'last); '
         f'{sec:.4f} s per update = {16 / sec:.2f} images/s (median of 5 '
         f'CUDA-event timed updates after the first), peak device memory '
         f'{peak:.2f} GiB; {CARD}')
@@ -642,6 +707,54 @@ def training(totals):
     log('training: the frozen VQGAN is bit-equal to its start')
 
 
+# the bf16 attention kernels, which must run their products on the tensor cores
+TENSOR_CORE_KERNELS = {'flash_attention': ['attn_fwd_wgmma'],
+                       'flash_attention_bwd': ['attn_bwd_dq_wgmma',
+                                               'attn_bwd_dkdv_wgmma']}
+
+
+def report_build(name, seconds):
+    """One line per kernel of the library ``name``: registers, shared memory
+    and spills from ``ptxas -v``, and how often ``cuobjdump -sass`` shows the
+    tensor-core opcodes (``HGMMA`` for wgmma, ``HMMA`` for mma.sync),
+    ``ldmatrix`` (``LDSM``) and ``cp.async`` (``LDGSTS``) in it.  Fails on a
+    spill, and on a bf16 attention kernel without a tensor-core opcode."""
+    log(f'build {name}: {seconds:.1f} s')
+    entry = None
+    usage = {}
+    for ln in _build.build_log(name).splitlines():
+        if 'Compiling entry function' in ln:
+            entry = ln.split("'")[1]
+            usage[entry] = []
+        elif entry and ('spill' in ln or 'registers' in ln):
+            usage[entry].append(ln.replace('ptxas info    :', '').strip())
+    sass = subprocess.run(
+        [_build.cuda_tool('cuobjdump'), '-sass', str(_build.library_path(name))],
+        capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for ln in sass.splitlines():
+        if 'Function :' in ln:
+            entry = ln.split('Function :')[1].strip()
+            counts[entry] = dict.fromkeys(('HGMMA', 'HMMA', 'LDSM', 'LDGSTS'), 0)
+        else:
+            for op in counts.get(entry, ()):
+                counts[entry][op] += f' {op}' in ln
+    for entry, lines in usage.items():
+        check(entry in counts, f'{entry} is not in the compiled library')
+        ops = counts[entry]
+        short = re.search(r'\d((?:attn|vq)_[a-z0-9_]+?)(?:ILi|EPK)', entry)
+        log(f'  {short.group(1) if short else entry}: {"; ".join(lines)}; SASS '
+            + ' '.join(f'{op}={n}' for op, n in ops.items()))
+        check(any('0 bytes spill stores, 0 bytes spill loads' in ln
+                  for ln in lines), f'{entry} spills registers')
+        if any(k in entry for k in TENSOR_CORE_KERNELS.get(name, ())):
+            check(ops['HGMMA'] + ops['HMMA'] > 0,
+                  f'{entry} does not use the tensor cores')
+    for kernel in TENSOR_CORE_KERNELS.get(name, ()):
+        check(any(kernel in entry for entry in usage),
+              f'{kernel} was not compiled')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py: no CUDA device available', file=sys.stderr)
@@ -662,9 +775,7 @@ def main():
     t0 = time.perf_counter()
     seconds = _build.build()
     for name in _build.KERNELS:
-        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                if 'registers' in ln]
-        log(f'build {name}: {seconds[name]:.1f} s; {"; ".join(regs)}')
+        report_build(name, seconds[name])
     g = torch.Generator(device='cuda').manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         sm.fused_gumbel_topk_sample(

@@ -2,61 +2,219 @@
 //
 // Replaces the Pallas TPU kernel paintmind_tpu/ops/flash_attention.py::
 // _flash_forward (kernel _attn_kernel).  That kernel keeps all of one
-// (batch, head)'s K/V in VMEM; on this card a block has at most 227 KB of
-// shared memory, which does not hold K/V for M = 1024 in fp32 (512 KB).  So
-// one block owns one (batch, head, tile of BQ queries), one query per thread,
-// and streams K/V through shared memory in tiles of BK keys, carrying an
-// online-softmax running max and sum in fp32.  Ragged M (77 text tokens) is
-// handled by looping only over the valid keys of the last tile: no padding
-// copy, no -inf fill.  Ragged N is handled by idle threads that store nothing.
+// (batch, head)'s K/V in VMEM; a block on this card has at most 227 KB of
+// shared memory and far fewer registers than that, so a block owns a tile of
+// queries of one (batch, head) and streams K/V through shared memory in tiles
+// of keys, carrying an online-softmax running max and sum in fp32.
 //
 // Layout: q (B, N, H, D), k and v (B, M, H, D), o (B, N, H, D), contiguous.
 // D is fixed at 64 (every attention of the model); fp32 or bf16 in, fp32
 // accumulation and softmax, output in the input type.  When a gradient is
 // wanted the caller passes lse, a (B, H, N) fp32 buffer that receives each
-// row's log-sum-exp of the scaled scores (max + log of the running sum): the
-// backward kernel (flash_attention_bwd.cu) rebuilds P from it tile by tile.
+// row's natural-log log-sum-exp of the scaled scores (max + log of the
+// running sum): the backward kernels (flash_attention_bwd.cu) rebuild P from
+// it tile by tile.
 //
-// Bound on this card: 4*B*H*N*M*D operations.  This first version runs them
-// on the fp32 CUDA cores with broadcast shared-memory reads (no tensor cores,
-// no TMA); the operands are read from device memory once per query tile.
+// Bound on this card: 4*B*H*N*M*D operations.  Two kernels, chosen by type:
+//
+//   attn_fwd_wgmma (bf16)  runs both products on the tensor cores with
+//     wgmma.m64n64k16 (building blocks in attention_mma.cuh).  A block is one
+//     warpgroup that owns 64 queries; its Q tile stays in shared memory.  K/V
+//     tiles of 64 keys stream through a ring of swizzled bf16 tiles by
+//     cp.async, so the next tile loads while this one multiplies.
+//     S = Q.K^T reads both operands from shared memory through descriptors
+//     (K's [key][d] tile as it lies); the online softmax works in base 2
+//     (scale * log2 e folded into the exponent) on the fp32 accumulators, the
+//     running sum is taken from the fp32 p; P is rounded to bf16 in registers,
+//     where two accumulator tiles are one A fragment, and O += P.V takes it
+//     from there, with V's tile read as a transposed B.  The scores never
+//     touch shared memory.  Ragged M (77 text tokens): missing rows of the
+//     last tile are zero-filled by the copy and their scores set to -inf;
+//     every tile holds at least one key, so no row max is -inf.  Ragged N:
+//     rows past N load zeros, take part in the products and store nothing.
+//   attn_fwd_f32 (fp32)  one query per thread on the fp32 CUDA cores, K/V in
+//     tiles of 32 keys, looping over the valid keys only: fp32 operands must
+//     not be rounded to TF32 (the stage-1 reconstruction is held to 1e-4).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int D = 64;    // head dim
-constexpr int BQ = 128;  // queries per block, one per thread
-constexpr int BK = 32;   // keys per shared-memory tile
+using namespace attn;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(BQ)
-attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-         T* __restrict__ o, float* __restrict__ lse, int N, int M, int H, float scale) {
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
-  __shared__ float ss[BK][BQ];  // this tile's scores, [key][query]: no bank conflicts
+constexpr int FWD_THREADS = 128;  // one warpgroup
+// ring stages: tile t + STAGES - 1 loads while tile t multiplies (3 and 4 were
+// slower on an H100 at N = M = 1024: fewer blocks fit an SM)
+constexpr int STAGES = 2;
+// the Q tile, the ring stages of a K and a V tile, room to start at a multiple of 1024
+constexpr int FWD_SMEM = (1 + 2 * STAGES) * TILE_BYTES + 1024;
+
+__global__ void __launch_bounds__(FWD_THREADS)
+attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+               float* __restrict__ lse, int N, int M, int H, float scale) {
+  constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  // the block's Q tile, then the ring: stage s has its K tile at s * STAGE_BYTES
+  // and its V tile after it; the descriptors' swizzle wants tiles that start at
+  // multiples of 1024 bytes
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (1024 - (smem_u32(smem_raw) & 1023)) % 1024;
+  const uint32_t qs = smem_u32(smem);
+  const uint32_t ring = qs + TILE_BYTES;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * TILE;
+  const long long tok = (long long)H * D;  // elements between consecutive tokens
+  const __nv_bfloat16* qb = q + (long long)b * N * tok + (long long)h * D;
+  const __nv_bfloat16* kb = k + (long long)b * M * tok + (long long)h * D;
+  const __nv_bfloat16* vb = v + (long long)b * M * tok + (long long)h * D;
+
+  const TileCopier<FWD_THREADS> copy_k(kb, tok, M, tid), copy_v(vb, tok, M, tid);
+  const int n_tiles = (M + TILE - 1) / TILE;
+  // tile t into stage t % STAGES, as one group (an empty one past the last tile:
+  // the count of groups in flight stays the same)
+  auto load_stage = [&](int t) {
+    if (t < n_tiles) {
+      const uint32_t dst = ring + (t % STAGES) * STAGE_BYTES;
+      copy_k(dst, t * TILE);
+      copy_v(dst + TILE_BYTES, t * TILE);
+    }
+    cp_async_commit();
+  };
+
+  TileCopier<FWD_THREADS>(qb, tok, N, tid)(qs, q0);  // lands with tile 0
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) load_stage(t);
+  const uint64_t qd = wgmma_desc(qs);
+
+  float oacc[8][4];
+  zero_acc(oacc);
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, base-2 scaled scores
+  float l_run[2] = {0.f, 0.f};              // this lane's share of the row sums
+  const float sl2 = scale * LOG2E;          // > 0: the row max is taken before scaling
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // this thread's share of tile t has landed
+    fence_proxy_async();          // and is visible to wgmma
+    __syncthreads();              // everyone's is, and everyone is done with tile t - 1,
+    load_stage(t + STAGES - 1);   // whose stage the tile STAGES - 1 ahead now takes
+    const uint32_t ks = ring + (t % STAGES) * STAGE_BYTES;
+    const uint64_t kd = wgmma_desc(ks);
+    const uint64_t vd = wgmma_desc(ks + TILE_BYTES);
+
+    float s[8][4];
+    zero_acc(s);  // never added: the first wgmma below overwrites it
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<0>(s, qd + kk * WGMMA_K_STEP, kd + kk * WGMMA_K_STEP, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(s);
+
+    const int valid = M - t * TILE;  // columns at or past it are no keys
+    if (valid < TILE) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * (lane & 3) + (e & 1) >= valid) s[j][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      // finite: the tile has a key
+      const float m_new = fmaxf(m_run[r], quad_max(mx) * sl2);
+      const float corr = fast_exp2(m_run[r] - m_new);  // 0 on the first tile
+      m_run[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = fast_exp2(fmaf(s[j][2 * r], sl2, -m_new));
+        const float p1 = fast_exp2(fmaf(s[j][2 * r + 1], sl2, -m_new));
+        s[j][2 * r] = p0;
+        s[j][2 * r + 1] = p1;
+        sum += p0 + p1;
+      }
+      l_run[r] = l_run[r] * corr + sum;
+      if (corr != 1.f) {  // after the first tiles a row's max seldom moves
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          oacc[j][2 * r] *= corr;
+          oacc[j][2 * r + 1] *= corr;
+        }
+      }
+    }
+
+    uint32_t pf[4][4];
+    pack_a_frags(pf, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<1>(oacc, pf[kk], vd + kk * WGMMA_ROW_STEP, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin(oacc);
+    wgmma_pin(pf);
+  }
+  __syncthreads();  // every warp is done with the Q tile: it now stages the output
+
+  const int g = lane >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      oacc[j][2 * r] *= inv;
+      oacc[j][2 * r + 1] *= inv;
+    }
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && row < N)
+      lse[((long long)b * H + h) * N + row] = m_run[r] * LN2 + logf(l);
+  }
+  store_rows(smem, warp * 16, oacc, o + (long long)b * N * tok + (long long)h * D, tok, q0, N,
+             lane);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int BQ32 = 128;  // queries per block, one per thread
+constexpr int BK32 = 32;   // keys per shared-memory tile
+
+__global__ void __launch_bounds__(BQ32)
+attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+             int N, int M, int H, float scale) {
+  __shared__ __align__(16) float ks[BK32][D];
+  __shared__ __align__(16) float vs[BK32][D];
+  __shared__ float ss[BK32][BQ32];  // this tile's scores, [key][query]: no bank conflicts
 
   const int tid = threadIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int qi = blockIdx.x * BQ + tid;
+  const int qi = blockIdx.x * BQ32 + tid;
   const bool active = qi < N;
   const long long tok = (long long)H * D;  // elements between consecutive tokens
 
   float qr[D];
   float acc[D];
   if (active) {
-    const T* qp = q + ((long long)b * N + qi) * tok + (long long)h * D;
+    const float* qp = q + ((long long)b * N + qi) * tok + (long long)h * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f(qp[d]);
+    for (int d = 0; d < D; ++d) qr[d] = qp[d];
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) qr[d] = 0.f;
@@ -66,20 +224,20 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   float m_run = -INFINITY;
   float l_run = 0.f;
 
-  const T* kb = k + (long long)b * M * tok + (long long)h * D;
-  const T* vb = v + (long long)b * M * tok + (long long)h * D;
+  const float* kb = k + (long long)b * M * tok + (long long)h * D;
+  const float* vb = v + (long long)b * M * tok + (long long)h * D;
 
-  for (int k0 = 0; k0 < M; k0 += BK) {
-    const int nk = min(BK, M - k0);
+  for (int k0 = 0; k0 < M; k0 += BK32) {
+    const int nk = min(BK32, M - k0);
     __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < BK * D; i += BQ) {
+    for (int i = tid; i < BK32 * D; i += BQ32) {
       const int j = i / D;
       const int d = i % D;
       float kv = 0.f, vv = 0.f;
       if (j < nk) {
         const long long off = (long long)(k0 + j) * tok + d;
-        kv = to_f(kb[off]);
-        vv = to_f(vb[off]);
+        kv = kb[off];
+        vv = vb[off];
       }
       ks[j][d] = kv;
       vs[j][d] = vv;
@@ -126,10 +284,10 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   }
 
   if (active) {
-    T* op = o + ((long long)b * N + qi) * tok + (long long)h * D;
+    float* op = o + ((long long)b * N + qi) * tok + (long long)h * D;
     const float inv = 1.f / l_run;
 #pragma unroll
-    for (int d = 0; d < D; ++d) store_f(op + d, acc[d] * inv);
+    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
     if (lse != nullptr) lse[((long long)b * H + h) * N + qi] = m_run + logf(l_run);
   }
 }
@@ -137,24 +295,31 @@ attn_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; lse may be null (no gradient wanted).
-// Returns the cudaError_t of the launch.
+// bf16 operands must be 16-byte aligned.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int B, int N, int M, int H, int head_dim,
                                    float scale, int dtype, void* stream) {
-  if (head_dim != D || B <= 0 || N <= 0 || M <= 0 || H <= 0 || H > 65535 || B > 65535)
+  if (head_dim != D || B <= 0 || N <= 0 || M <= 0 || H <= 0 || H > 65535 || B > 65535 ||
+      !(scale > 0.f))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lp = static_cast<float*>(lse);
   if (dtype == 0) {
-    attn_fwd<float><<<grid, BQ, 0, st>>>(
+    const dim3 grid((N + BQ32 - 1) / BQ32, H, B);
+    attn_fwd_f32<<<grid, BQ32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lp, N, M, H, scale);
   } else if (dtype == 1) {
-    attn_fwd<__nv_bfloat16><<<grid, BQ, 0, st>>>(
+    // needed once the ring is above the 48 KB a kernel gets unasked; the
+    // attribute is per device, so it is set at every launch
+    const cudaError_t attr = cudaFuncSetAttribute(
+        attn_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((N + TILE - 1) / TILE, H, B);
+    attn_fwd_wgmma<<<grid, FWD_THREADS, FWD_SMEM, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lp, N,
-        M, H, scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lp, N, M, H,
+        scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for sm_90a into its own shared library under ``csrc/build/``, named
-by a digest of the source and the flags, so an edited source is rebuilt and
-a stale library is never loaded.  The build runs at first use (or up front
+by a digest of the source, of every shared header ``csrc/*.cuh`` and of the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded.  The build runs at first use (or up front
 through :func:`build`, which starts one ``nvcc`` per source, all at once).
 Nothing is compiled when the package is imported.
 """
@@ -29,22 +30,24 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is not None:
-        path = os.path.join(CUDA_HOME, 'bin', 'nvcc')
+        path = os.path.join(CUDA_HOME, 'bin', name)
         if os.path.exists(path):
             return path
-    path = shutil.which('nvcc')
+    path = shutil.which(name)
     if path is None:
-        raise RuntimeError('nvcc not found: the CUDA kernels are built on a '
+        raise RuntimeError(f'{name} not found: the CUDA kernels are built on a '
                            'machine with the CUDA toolkit (set CUDA_HOME)')
     return path
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in (CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))):
+        digest.update(src.name.encode() + b'\0' + src.read_bytes())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
@@ -54,7 +57,7 @@ def build(names=KERNELS) -> dict[str, float]:
     seconds of each (0.0 where the library was already built); raises with
     the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool('nvcc')
     procs = {}
     t0 = time.perf_counter()
     for name in names:
@@ -64,7 +67,8 @@ def build(names=KERNELS) -> dict[str, float]:
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
         log = open(out.with_suffix('.log'), 'w')
         procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
+            [nvcc, *NVCC_FLAGS, '-I', str(CSRC), '-o', str(tmp),
+             str(CSRC / f'{name}.cu')],
             stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
     seconds = {name: 0.0 for name in names}
     failed = []

@@ -8,25 +8,38 @@ Non-causal ``softmax(q·kᵀ·scale)·v`` for self- and cross-attention, in the
 JAX layout (B, N, H, D) x (B, M, H, D).
 
 What bounds them on an H100: operations, not bytes.  The forward does
-4·B·H·N·M·D (34 GFLOP for one stage-2 self-attention at B = 8; q, k, v and o
-are 67 MB in bf16), the backward's five products 10·B·H·N·M·D.  Both kernels
-keep the (N, M) scores out of device memory.  The forward
-(``csrc/flash_attention.cu``) gives each block 128 queries of one (batch,
-head) and streams K/V tiles through shared memory with an online softmax in
-fp32.  The backward (``csrc/flash_attention_bwd.cu``) cannot carry dk/dv
-from one query block to the next as the TPU grid does, so it splits the work
-by ownership into two kernels (query blocks write dq, key blocks write dk
-and dv) and rebuilds P in both from the forward's per-row log-sum-exp: no
-atomics, so the gradients are the same bits on every run.  These first
-versions run their products on the fp32 CUDA cores; tensor cores
-(``wgmma``) are later work (ROADMAP).
+4·B·H·N·M·D, the backward's five products 10·B·H·N·M·D, and both keep the
+(N, M) scores out of device memory.  The forward (``csrc/flash_attention.cu``)
+gives each block a tile of queries of one (batch, head) and streams K/V tiles
+through shared memory with an online softmax in fp32.  The backward
+(``csrc/flash_attention_bwd.cu``) cannot carry dk/dv from one query block to
+the next as the TPU grid does, so it splits the work by ownership into two
+kernels (query blocks write dq, key blocks write dk and dv) and rebuilds P
+in both from the forward's per-row log-sum-exp: no atomics, so the gradients
+are the same bits on every run.
+
+bf16 operands run every product on the tensor cores: ``wgmma`` (one
+warpgroup of four warps owns 64 rows) reads swizzled bf16 tiles in shared
+memory, which ``cp.async`` streams through a two-stage ring
+(``csrc/attention_mma.cuh``); the scores, P and dS stay in registers, and P
+and dS are rounded to bf16 there before the products that consume them, as
+the TPU kernels round them.  fp32 operands keep kernels on the fp32 CUDA
+cores, because their gates (1e-4 max abs forward, 1e-5 mean relative
+backward) cannot take TF32.  The C entry points choose by type.  Still to
+come on the way to the bound: TMA loads by a producer warp, and softmax
+overlapped with the products inside a block (ROADMAP).
 
 Residuals.  The JAX package keeps (q, k, v) and recomputes each row's max
 and sum in the backward, which holds all M keys of a row at once.  The port
 keeps (q, k, v, lse): the added memory is the (B, H, N) fp32 log-sum-exp,
-0.5 MB per attention at B = 8, H = 16, N = 1024.  δ is summed inside K4 from
-P and dP, not taken from the rounded output as rowsum(g∘o): see the note in
+4·B·H·N bytes per attention.  δ is summed inside K4 from P and dP, not taken
+from the rounded output as rowsum(g∘o): see the note in
 ``csrc/flash_attention_bwd.cu``.
+
+Beside each kernel stand its plain version (the arithmetic, on whole
+matrices) and a tiled emulation of the bf16 kernel in plain PyTorch (the
+same 64-key tiles, masking, zero padding, base-2 exponent and rounding
+places): the emulations are called by the tests and ``chip_smoke.py`` only.
 """
 
 from __future__ import annotations
@@ -61,6 +74,12 @@ def flash_attention_plain(q, k, v, scale):
     return torch.einsum('bhnm,bmhd->bnhd', probs, v)
 
 
+def _rounded(t, dtype):
+    """``t`` rounded to ``dtype`` and raised again: what a tensor-core
+    product sees of an fp32 operand.  The identity for fp32 and fp64."""
+    return t.to(dtype).to(t.dtype)
+
+
 def flash_attention_backward_plain(q, k, v, g, scale):
     """(dq, dk, dv) of ``softmax(q·kᵀ·scale)·v`` for the cotangent ``g`` of
     the output, written out from the formulas (no autograd):
@@ -69,19 +88,105 @@ def flash_attention_backward_plain(q, k, v, g, scale):
         dP = g·vᵀ                    δ = rowsum(P∘dP)
         dS = P∘(dP − δ)·scale        dq = dS·k,  dk = dSᵀ·q
 
-    Follows kernel K4: operands are raised to fp32, P and dS stay in fp32
-    through their products (the TPU kernel rounds them to the input type
-    first), and each gradient is rounded once, to its operand's type."""
+    Follows kernel K4 (and the TPU kernel): operands are raised to fp32, δ
+    and dS are formed in fp32, then P (for dv) and dS (for dq, dk) are
+    rounded to the operands' type before the products that consume them;
+    the products accumulate in fp32 and each gradient is rounded once, to
+    its operand's type.  fp32 and fp64 operands are rounded nowhere."""
     acc = _acc_dtype(q)
     qf, kf, vf, gf = (t.to(acc) for t in (q, k, v, g))
     p = torch.softmax(torch.einsum('bnhd,bmhd->bhnm', qf, kf) * scale, dim=-1)
-    dv = torch.einsum('bhnm,bnhd->bmhd', p, gf)
     dp = torch.einsum('bnhd,bmhd->bhnm', gf, vf)
     delta = (p * dp).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta) * scale
+    ds = _rounded(p * (dp - delta) * scale, q.dtype)
+    dv = torch.einsum('bhnm,bnhd->bmhd', _rounded(p, q.dtype), gf)
     dq = torch.einsum('bhnm,bmhd->bnhd', ds, kf)
     dk = torch.einsum('bhnm,bnhd->bmhd', ds, qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --- tiled emulations of the bf16 kernels (tests and chip_smoke.py only) ---
+
+TILE = 64  # rows of a shared-memory tile in the bf16 kernels
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+
+
+def _pad_tiles(t, dim=1):
+    """Zero rows up to a multiple of ``TILE`` along ``dim``: what the
+    kernels' zero-filling copies put past a ragged edge."""
+    pad = -t.shape[dim] % TILE
+    if pad == 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = pad
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+def flash_attention_tiled(q, k, v, scale):
+    """The bf16 K1 step by step in plain PyTorch -> (o, lse): 64-key tiles
+    with zero rows past M whose scores are set to −inf, zero query rows
+    past N, a base-2 online softmax (running max, rescale, running sum from
+    the unrounded p), P rounded to the operand type before P·V, the output
+    scaled by 1/l, and lse = max·ln 2 + log l (natural log, (B, H, N))."""
+    acc = _acc_dtype(q)
+    n, m = q.shape[1], k.shape[1]
+    qf, kf, vf = (_pad_tiles(t.to(acc)) for t in (q, k, v))
+    b, n_pad, h, d = qf.shape
+    cols = torch.arange(TILE, device=q.device)
+    o = qf.new_zeros(b, h, n_pad, d)
+    m_run = qf.new_full((b, h, n_pad, 1), float('-inf'))
+    l_run = qf.new_zeros(b, h, n_pad, 1)
+    for k0 in range(0, m, TILE):
+        ks, vs = kf[:, k0:k0 + TILE], vf[:, k0:k0 + TILE]
+        s = torch.einsum('bnhd,bmhd->bhnm', qf, ks) * (scale * _LOG2E)
+        s = s.masked_fill(k0 + cols >= m, float('-inf'))
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m_run - m_new)  # 0 on the first tile
+        p = torch.exp2(s - m_new)
+        l_run = l_run * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + torch.einsum('bhnm,bmhd->bhnd', _rounded(p, q.dtype), vs)
+        m_run = m_new
+    out = (o * (1.0 / l_run)).permute(0, 2, 1, 3)[:, :n].to(q.dtype)
+    lse = (m_run * _LN2 + torch.log(l_run))[:, :, :n, 0].float()
+    return out.contiguous(), lse.contiguous()
+
+
+def flash_attention_backward_tiled(q, k, v, g, scale, lse):
+    """The bf16 K4 step by step in plain PyTorch -> (dq, dk, dv): the same
+    tiles and zero padding (rows past N also get lse = 0, so their P is 1
+    and their dP, dS are 0), P = 2^(s·scale·log2 e − lse·log2 e) with the
+    columns past M set to 0, a first pass over the key tiles that sums
+    δ = rowsum(P∘dP) in fp32, a second that forms dS in fp32 from the same
+    P and dP, and P and dS rounded to the operand type before dv = Pᵀ·g,
+    dq = dS·k and dk = dSᵀ·q.  (The dk/dv kernel sums over query tiles in
+    order; here the whole padded query range is one product.)"""
+    acc = _acc_dtype(q)
+    n, m = q.shape[1], k.shape[1]
+    qf, kf, vf, gf = (_pad_tiles(t.to(acc)) for t in (q, k, v, g))
+    lse2 = _pad_tiles(lse.to(acc), dim=2)[..., None] * _LOG2E
+    cols = torch.arange(TILE, device=q.device)
+
+    def p_and_dp(k0):
+        s = torch.einsum('bnhd,bmhd->bhnm', qf, kf[:, k0:k0 + TILE])
+        p = torch.exp2(s * (scale * _LOG2E) - lse2)
+        p = p.masked_fill(k0 + cols >= m, 0.0)
+        return p, torch.einsum('bnhd,bmhd->bhnm', gf, vf[:, k0:k0 + TILE])
+
+    delta = 0.0
+    for k0 in range(0, m, TILE):
+        p, dp = p_and_dp(k0)
+        delta = delta + (p * dp).sum(dim=-1, keepdim=True)
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for k0 in range(0, m, TILE):
+        p, dp = p_and_dp(k0)
+        ds = _rounded(p * (dp - delta) * scale, q.dtype)
+        dq += torch.einsum('bhnm,bmhd->bnhd', ds, kf[:, k0:k0 + TILE])
+        dk[:, k0:k0 + TILE] = torch.einsum('bhnm,bnhd->bmhd', ds, qf)
+        dv[:, k0:k0 + TILE] = torch.einsum('bhnm,bnhd->bmhd',
+                                           _rounded(p, q.dtype), gf)
+    return (dq[:, :n].to(q.dtype), dk[:, :m].to(k.dtype),
+            dv[:, :m].to(v.dtype))
 
 
 def _kernel(name):
@@ -98,10 +203,13 @@ def _kernel(name):
     return _fns[name]
 
 
-def _check_operands(q, k, v):
+def _check_operands(q, k, v, scale):
     """Raise on what the kernels do not take."""
     if q.device.type != 'cuda':
         raise ValueError(f'flash_attention: unsupported device {q.device}')
+    if not scale > 0:
+        raise ValueError(f'flash_attention kernel takes a positive scale, '
+                         f'got {scale}')
     b, n, h, d = q.shape
     m = k.shape[1]
     if d != HEAD_DIM:
@@ -117,11 +225,14 @@ def _check_operands(q, k, v):
         raise ValueError('flash_attention kernel takes contiguous operands')
     if not (k.device == q.device and v.device == q.device):
         raise ValueError('flash_attention: operands on different devices')
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError('flash_attention kernel takes operands aligned to '
+                         '16 bytes')
 
 
 def _launch_forward(q, k, v, scale, with_lse):
     """K1 on CUDA operands -> (o, lse or None)."""
-    _check_operands(q, k, v)
+    _check_operands(q, k, v, scale)
     b, n, h, d = q.shape
     global launches
     out = torch.empty_like(q)
@@ -145,7 +256,7 @@ def flash_attention_backward(q, k, v, g, scale, lse=None):
     needs (the plain version does not).  ``g`` is made contiguous."""
     if q.device.type == 'cpu':
         return flash_attention_backward_plain(q, k, v, g, scale)
-    _check_operands(q, k, v)
+    _check_operands(q, k, v, scale)
     b, n, h, d = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f'flash_attention backward: cotangent '
@@ -157,6 +268,8 @@ def flash_attention_backward(q, k, v, g, scale, lse=None):
         raise ValueError("flash_attention backward: lse is not the forward's "
                          '(B, H, N) fp32 log-sum-exp')
     g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()  # a fresh allocation is aligned
     global launches_bwd
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)

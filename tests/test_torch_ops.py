@@ -4,6 +4,8 @@ mode, the sampling head's top-k mask and arithmetic against the JAX math on
 shared Gumbel noise.  On a CPU tensor each port wrapper takes its plain
 version and launches nothing."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from paintmind_tpu.ops import flash_attention as jfa
 from paintmind_tpu.ops import sampling as jsm
 from paintmind_tpu.ops import vq_lookup as jvq
 from paintmind_tpu_torch.models import quantize as tq
+from paintmind_tpu_torch.ops import _build
 from paintmind_tpu_torch.ops import flash_attention as tfa
 from paintmind_tpu_torch.ops import sampling as tsm
 from paintmind_tpu_torch.ops import vq_lookup as tvq
@@ -51,6 +54,69 @@ def test_flash_plain_matches_jax_kernel(interpret_mode, n, m):
     assert float(np.abs(out.numpy() - ref).mean()) <= 1e-5
     assert float(np.abs(out.numpy() - ref).max()) <= 1e-4
     assert tfa.launches == before
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n,m', [(200, 77), (128, 77), (72, 72), (128, 192)])
+def test_flash_tiled_emulation(interpret_mode, n, m, dtype):
+    """The tiled emulation of the bf16 K1 (64-key tiles, -inf on the columns
+    past M, zero rows past N, base-2 online softmax, P rounded before P.V)
+    against ``flash_attention_plain`` and the Pallas kernel in interpret
+    mode, at ragged M, ragged N and more than one full key tile.  fp32:
+    nothing is rounded, mean relative error <= 1e-5.  bf16: the emulation
+    rounds the unnormalised p and divides by the fp32 sum afterwards, the
+    other two round the normalised probabilities, so they differ by one
+    bf16 rounding of values below 1: mean abs <= 1e-3 (measured 3.1e-4 at
+    most), the JAX package's own bf16 gate being 5e-3.  Its log-sum-exp
+    against ``torch.logsumexp`` of the fp32 scaled scores: <= 1e-5 max abs."""
+    rng = np.random.default_rng(7 * n + m)
+    q, k, v = (rng.standard_normal((2, s, 3, 64)).astype(np.float32)
+               for s in (n, m, m))
+    tdt = getattr(torch, dtype)
+    tq_, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    out, lse = tfa.flash_attention_tiled(tq_, tk, tv, 0.125)
+    assert out.shape == (2, n, 3, 64) and out.dtype == tdt
+    assert lse.shape == (2, 3, n) and lse.dtype == torch.float32
+    plain = tfa.flash_attention_plain(tq_, tk, tv, 0.125).float().numpy()
+    pallas = np.asarray(jfa.flash_attention(
+        *(jnp.asarray(a.float().numpy(), getattr(jnp, dtype))
+          for a in (tq_, tk, tv)), 0.125).astype(jnp.float32))
+    got = out.float().numpy()
+    want_lse = torch.logsumexp(torch.einsum(
+        'bnhd,bmhd->bhnm', tq_.float(), tk.float()) * 0.125, dim=-1)
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    for name, ref in (('plain', plain), ('pallas interpret', pallas)):
+        mean_abs = float(np.abs(got - ref).mean())
+        print(f'tiled K1 vs {name} N={n} M={m} {dtype}: mean abs '
+              f'{mean_abs:.3e}')
+        if dtype == 'float32':
+            assert mean_abs / float(np.abs(ref).mean()) <= 1e-5, name
+        else:
+            assert mean_abs <= 1e-3, name
+
+
+def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
+    """A library is named by a digest of its source, of every shared header
+    in ``csrc/`` and of the flags: editing a header renames every library
+    (so none is loaded stale), editing one source renames only its own."""
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(_build.CSRC, csrc, ignore=shutil.ignore_patterns('build'))
+    assert list(csrc.glob('*.cuh')), 'the kernels share at least one header'
+    monkeypatch.setattr(_build, 'CSRC', csrc)
+    monkeypatch.setattr(_build, 'BUILD_DIR', csrc / 'build')
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert all(p.parent == csrc / 'build' for p in before.values())
+    assert before == {name: _build.library_path(name)
+                      for name in _build.KERNELS}
+    header = next(csrc.glob('*.cuh'))
+    header.write_bytes(header.read_bytes() + b'\n// edited\n')
+    after = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert all(after[name] != before[name] for name in _build.KERNELS)
+    source = csrc / 'vq_lookup.cu'
+    source.write_bytes(source.read_bytes() + b'\n// edited\n')
+    last = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert last['vq_lookup'] != after['vq_lookup']
+    assert last['flash_attention'] == after['flash_attention']
 
 
 def test_vq_lookup_plain_matches_jax_kernel(interpret_mode):
