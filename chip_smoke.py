@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``paintmind_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py K3 K2      # build and check these kernels only, then
+                                     # stop (a short first run after a kernel
+                                     # edit; prints no result line)
 
 Phases, each printed on its own line(s); any failure raises and the script
 exits non-zero with no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. builds kernels K1-K4 from the sources in this checkout (one ``nvcc``
-     per CUDA source, all at once; the Triton kernel by its first launch),
-     prints each CUDA kernel's registers, shared memory and spills, and
-     checks in the compiled code that the bf16 attention kernels run their
-     products on the tensor cores (``HGMMA`` in the SASS) and spill nothing;
+     per CUDA source, all at once), prints each kernel's registers, shared
+     memory and spills, and checks in the compiled code that the bf16
+     attention kernels run their products on the tensor cores (``HGMMA`` in
+     the SASS) and that no kernel spills;
   3. holds each kernel against its plain PyTorch version at the main
      path's shapes, and times kernel, plain version and (where one exists)
      the PyTorch library call, beside the least time the card could take;
@@ -28,7 +31,10 @@ exits non-zero with no result line:
      updates of the step function (Lion, dropout on, two microbatches
      each), timed; a short ``PaintMindTrainer.train()`` with ``save()``,
      ``resume('auto')`` into a second trainer and one ``evaluate()``;
-  7. one ``{"kernels": [...]}`` line, then the last line
+  7. a ``torch.profiler`` window over one unguided ``generate`` and one over
+     one training microbatch: the ten device operations with the most time,
+     and the device's busy share of each window (report only);
+  8. one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero when there is none.
@@ -42,6 +48,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -104,13 +111,16 @@ def median_ms(fn, iters):
 
 
 def time_ms(fn, iters):
-    """Mean milliseconds per call over ``iters`` calls, CUDA events, after
-    two warm-up calls."""
+    """Mean device milliseconds per call over ``iters`` calls, CUDA events,
+    after two warm-up calls.  The calls are queued behind a device-side
+    sleep of some 20 ms, so that a kernel shorter than its wrapper's host
+    time is timed at the device's rate and not at the host's."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -300,28 +310,70 @@ def check_k4(g):
     return entry
 
 
-def check_k2(g):
-    """T = 8·1024 l2-normalised queries against the shipped 8192 x 32
-    codebook.  Indices equal, except at near-ties (score gap < 1e-5)."""
-    codebook = load_flat(ASSET)['quantize/codebook'].float().cuda()
-    e = tq.l2norm(codebook).contiguous()
-    z = tq.l2norm(torch.randn(8 * 1024, 32, device='cuda', generator=g))
+def k2_compare(z, e, what):
+    """K2 against ``nearest_codes_plain``: equal but for near-ties (score
+    gap < 1e-5); a second launch gives the same bits.  Returns (kernel's
+    indices, how many differ, the largest gap)."""
     got = vq.fused_nearest_codes(z, e)
+    again = vq.fused_nearest_codes(z, e)
     ref = vq.nearest_codes_plain(z, e)
+    check(torch.equal(got, again), f'K2 {what}: two launches differ')
+    check(bool(((got >= 0) & (got < e.shape[0])).all()),
+          f'K2 {what}: an index outside the codebook')
     scores = z @ e.t()
     rows = torch.arange(z.shape[0], device='cuda')
     gap = (scores[rows, got.long()] - scores[rows, ref.long()]).abs()
-    differ = int((got != ref).sum())
-    max_gap = gap.max().item()
-    check(max_gap < 1e-5, f'K2 disagrees beyond a near-tie: gap {max_gap}')
-    ms = time_ms(lambda: vq.fused_nearest_codes(z, e), 20)
+    differ, max_gap = int((got != ref).sum()), gap.max().item()
+    check(max_gap < 1e-5, f'K2 {what} disagrees beyond a near-tie: gap {max_gap}')
+    return got, differ, max_gap
+
+
+def check_k2(g):
+    """T = 8·1024 l2-normalised queries against the shipped 8192 x 32
+    codebook.  Indices equal, except at near-ties (score gap < 1e-5); the
+    same at ragged sizes (T = 1000, C = 1000), at T = 1024 (one image batch
+    of the serving engine at B = 1: the codebook split over 16 blocks per
+    token tile) and at T = 1; on a codebook whose upper half repeats its
+    lower half every index lies in the lower half (exact ties go to the
+    lowest index through every merge and split).  Two launches bit-equal
+    everywhere.  Times T = 8192 and T = 1024."""
+    codebook = load_flat(ASSET)['quantize/codebook'].float().cuda()
+    e = tq.l2norm(codebook).contiguous()
+    z = tq.l2norm(torch.randn(8 * 1024, 32, device='cuda', generator=g))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, differ, max_gap = k2_compare(z, e, 'T=8192')
+    notes = []
+    for what, zz, ee in (('T=1000 C=1000', z[:1000], e[:1000].contiguous()),
+                         ('T=1024', z[:1024], e), ('T=1', z[:1], e)):
+        _, d, gap = k2_compare(zz, ee, what)
+        splits = vq.codebook_splits(zz.shape[0], ee.shape[0], sms)
+        notes.append(f'{what} ({splits} splits): {d} differ, gap {gap:.1e}')
+    half = e.shape[0] // 2
+    dup = torch.cat([e[:half], e[:half]]).contiguous()
+    for what, zz in (('duplicated codebook T=8192', z),
+                     ('duplicated codebook T=1024', z[:1024])):
+        got, d, gap = k2_compare(zz, dup, what)
+        check(bool((got < half).all()), f'K2 {what}: an exact tie went to the '
+              'higher index')
+        notes.append(f'{what}: all in the lower half, {d} differ, gap {gap:.1e}')
+    log('K2 ' + '; '.join(notes))
+    t, c, d = z.shape[0], e.shape[0], z.shape[1]
+    ms = time_ms(lambda: vq.fused_nearest_codes(z, e), 50)
     plain_ms = time_ms(lambda: vq.nearest_codes_plain(z, e), 20)
     lib_ms = time_ms(lambda: torch.argmax(z @ e.t(), dim=-1), 20)
-    t, c, d = z.shape[0], e.shape[0], z.shape[1]
+    z1 = z[:1024]
+    ms1 = time_ms(lambda: vq.fused_nearest_codes(z1, e), 50)
+    lib_ms1 = time_ms(lambda: torch.argmax(z1 @ e.t(), dim=-1), 20)
     bms, by = bound((t * d + c * d) * 4 + t * 4, 2 * t * c * d, torch.float32)
-    log(f'K2 T={t} C={c} D={d} fp32: {differ} of {t} ids differ '
-        f'(max score gap {max_gap:.3e}) ms={ms:.4f} plain_ms={plain_ms:.4f} '
-        f'argmax_matmul_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})')
+    bms1, _ = bound((1024 * d + c * d) * 4 + 1024 * 4, 2 * 1024 * c * d,
+                    torch.float32)
+    log(f'K2 T={t} C={c} D={d} fp32 ({vq.codebook_splits(t, c, sms)} splits): '
+        f'{differ} of {t} ids differ (max score gap {max_gap:.3e}) '
+        f'ms={ms:.4f} = {2 * t * c * d / ms / 1e9:.2f} TFLOP/s '
+        f'plain_ms={plain_ms:.4f} argmax_matmul_ms={lib_ms:.4f} '
+        f'bound_ms={bms:.4f} ({by}); T=1024: ms={ms1:.4f} = '
+        f'{2 * 1024 * c * d / ms1 / 1e9:.2f} TFLOP/s '
+        f'argmax_matmul_ms={lib_ms1:.4f} bound_ms={bms1:.4f}; {CARD}')
     return dict(max_abs_err=max_gap, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
 
@@ -333,12 +385,57 @@ def check_k2(g):
 K3_OPS_PER_LOGIT = 5
 
 
+def k3_with_seed(logits, temperature, k, g):
+    """One K3 launch, and the seed it drew from ``g``."""
+    state = g.get_state()
+    seed = sm.draw_seed(g, 'cuda')
+    g.set_state(state)
+    pred, conf = sm.fused_gumbel_topk_sample(logits, temperature, k, generator=g)
+    return pred, conf, seed
+
+
+def k3_against_plain(logits, temperature, k, g, what, near_tie=1e-5):
+    """K3 against ``gumbel_topk_sample_plain`` on the noise the launch drew
+    (``philox_gumbel`` of its seed): pred equal except on rows whose two
+    best perturbed scores lie within ``near_tie`` (``logf`` on the card and
+    in PyTorch differ in the last bits), conf within 1e-5 on the equal
+    rows.  Returns (rows that differ, max conf error)."""
+    pred, conf, seed = k3_with_seed(logits, temperature, k, g)
+    noise = sm.philox_gumbel(seed, logits.shape, device='cuda')
+    rpred, rconf = sm.gumbel_topk_sample_plain(logits, temperature, k, noise)
+    l = logits.float()
+    shape = l.shape[:-1]
+    temp = torch.as_tensor(temperature, dtype=torch.float32,
+                           device='cuda').clamp(min=1e-10)
+    if temp.ndim:  # per-sample (B,)
+        temp = temp.reshape(-1, *([1] * (l.ndim - 1)))
+    score = torch.where(sm.topk_keep_mask(l, k), l / temp + noise, -torch.inf)
+    del noise
+    top2 = score.topk(min(2, k), dim=-1).values
+    gap = (top2[..., 0] - top2[..., -1]).abs() if k > 1 else \
+        torch.full(shape, torch.inf, device='cuda')
+    same = pred == rpred
+    check(bool((same | (gap < near_tie)).all()),
+          f'K3 {what}: pred differs from the plain version on the same noise '
+          f'beyond a near-tie ({int((~same).sum())} rows differ)')
+    err = ((conf - rconf).abs() * same).max().item()
+    check(err <= 1e-5, f'K3 {what}: conf err {err}')
+    return int((~same).sum()), err
+
+
 def check_k3(g):
     """(8·1024, 8192) logits, top-k 5.  Temperature 1e-10 on distinct fp32
     logits: pred equal to the plain version, conf within 1e-6.  Temperature
     1: pred in the exact top-5 set, conf = softmax(logits)[pred] within
     1e-5 (fp32 and bf16 logits), and over 8192 draws of one row the
-    frequencies match the top-5 softmax within 0.02."""
+    frequencies match the top-5 softmax within 0.02.  Against the plain
+    version on the kernel's own noise (``k3_against_plain``) at temperature
+    1, 0.7 and per-sample, fp32 and bf16; at a ragged size (T = 37, V = 500,
+    k = 3, rows off the 16-byte grid) and on mass ties (integer logits) at
+    temperature 1e-10 and 1, k = 1, 3, 16.  One seed twice: the same bits;
+    two seeds: different.  Times bf16 and fp32 at 8192 x 8192 and bf16 at
+    1024 x 8192 (B = 1; 16.8 MB, which the 50 MB L2 can hold between the
+    timed launches)."""
     t, v, k = 8 * 1024, 8192, 5
     # distinct values in every row: a seeded permutation of an even grid
     grid = torch.arange(v, device='cuda', dtype=torch.float32) * (8.0 / v) - 4
@@ -359,6 +456,7 @@ def check_k3(g):
         want = torch.softmax(lg.float(), -1).gather(1, pred.long()[:, None])[:, 0]
         err = (conf - want).abs().max().item()
         check(err <= 1e-5, f'K3 {dtype} conf err {err}')
+        del keep, want
 
     row = torch.randn(v, device='cuda', generator=g) - 8
     row[[11, 900, 4000, 6001, 8191]] = torch.tensor(
@@ -372,19 +470,69 @@ def check_k3(g):
     check(bool((pred[:, None] == top[None, :]).any(1).all()),
           'K3 drew outside the top-5 of the repeated row')
     check(dist_err <= 0.02, f'K3 frequencies off the top-5 softmax by {dist_err}')
+    del draws
+
+    # sample for sample against the plain version on the kernel's own noise
+    near, plain_err = 0, 0.0
+    wide = (torch.randn(8, 1024, v, device='cuda', generator=g) * 3)
+    per_sample = torch.linspace(0.3, 2.0, 8, device='cuda')
+    for dtype in (torch.float32, torch.bfloat16):
+        lg = wide.to(dtype)
+        for temp in (1.0, 0.7, per_sample):
+            n, err = k3_against_plain(lg, temp, k, g, f'{dtype} temp {temp}')
+            near, plain_err = near + n, max(plain_err, err)
+    del wide, lg
+    small = 0
+    ties = torch.randint(0, 4, (37, 500), device='cuda', generator=g).float()
+    ragged = torch.randn(37, 500, device='cuda', generator=g) * 3
+    for name, lg in (('mass ties', ties), ('ragged', ragged)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kk in (1, 3, 16):
+                for temp in (1e-10, 1.0):
+                    # one element off the 16-byte grid: every row has a head
+                    off = torch.empty(lg.numel() + 1, device='cuda', dtype=dtype)
+                    for view in (lg.to(dtype), off[1:].view_as(lg).copy_(lg)):
+                        n, err = k3_against_plain(
+                            view, temp, kk, g, f'{name} {dtype} k={kk} temp {temp}',
+                            near_tie=1e-5 if temp == 1.0 else 0.0)
+                        small, plain_err = small + n, max(plain_err, err)
 
     lb = logits.to(torch.bfloat16)  # the pipeline's logits type
+    state = g.get_state()
+    first = sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g)
+    g.set_state(state)
+    second = sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g)
+    other = sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g)
+    check(torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]),
+          'K3: one seed, two launches, different bits')
+    check(not torch.equal(first[0], other[0]), 'K3: two seeds, the same sample')
+
     noise = noise.to(torch.bfloat16)
-    ms = time_ms(lambda: sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g), 20)
+    ms = time_ms(lambda: sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g), 50)
     plain_ms = time_ms(lambda: sm.gumbel_topk_sample_plain(lb, 1.0, k, noise), 5)
-    nbytes = t * v * lb.element_size() + t * 4 + t * (4 + 4)
-    bms, by = bound(nbytes, t * v * K3_OPS_PER_LOGIT, torch.float32)
+    del noise
+    ms32 = time_ms(lambda: sm.fused_gumbel_topk_sample(logits, 1.0, k,
+                                                       generator=g), 50)
+    one = lb[:1024].contiguous()
+    ms1 = time_ms(lambda: sm.fused_gumbel_topk_sample(one, 1.0, k, generator=g), 50)
+
+    def k3_bound(rows, size):
+        return bound(rows * v * size + 8 + rows * (4 + 4),
+                     rows * v * K3_OPS_PER_LOGIT, torch.float32)
+
+    bms, by = k3_bound(t, 2)
     log(f'K3 T={t} V={v} k={k}: temp 1e-10 conf_err={conf_err:.3e}; temp 1 '
-        f'top-5 softmax frequency err={dist_err:.4f} over 8192 draws; bf16 '
-        f'ms={ms:.4f} plain_ms={plain_ms:.4f} (noise given) '
-        f'bound_ms={bms:.4f} ({by})')
-    return dict(max_abs_err=conf_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+        f'top-5 softmax frequency err={dist_err:.4f} over 8192 draws; against '
+        f'the plain version on the kernel\'s own noise: {near} of {6 * t} rows '
+        f'differ at near-ties (< 1e-5), {small} of the small ragged / '
+        f'mass-tie rows, conf err {plain_err:.3e}; bf16 ms={ms:.4f} = '
+        f'{t * v * 2 / ms / 1e6:.0f} GB/s plain_ms={plain_ms:.4f} (noise given) '
+        f'bound_ms={bms:.4f} ({by}); fp32 ms={ms32:.4f} = '
+        f'{t * v * 4 / ms32 / 1e6:.0f} GB/s bound_ms={k3_bound(t, 4)[0]:.4f}; '
+        f'bf16 T=1024 ms={ms1:.4f} = {1024 * v * 2 / ms1 / 1e6:.0f} GB/s '
+        f'bound_ms={k3_bound(1024, 2)[0]:.4f}; {CARD}')
+    return dict(max_abs_err=max(conf_err, plain_err), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +609,7 @@ def stage2(totals):
     g = torch.Generator(device='cuda').manual_seed(0)
     ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
     steps, depth, dec = 16, cfg.depth, cfg.vqc.dec.depth
+    torch.cuda.reset_peak_memory_stats()
     pipe.generate(text=ctx, timesteps=2, topk=5, decode_steps='final',
                   generator=g)  # warm-up: cuBLAS handles, allocator
 
@@ -504,6 +653,7 @@ def stage2(totals):
     log(f'stage 2 guided logits, kernels vs plain attention: mean rel err '
         f'{rel:.3e}, argmax agree {top1:.4f}')
     log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    return pipe
 
 
 # ---------------------------------------------------------------------------
@@ -705,6 +855,7 @@ def training(totals):
     check(all(torch.equal(a, b) for a, b in zip(vq0, pipe.vqgan.parameters())),
           'training changed the frozen VQGAN')
     log('training: the frozen VQGAN is bit-equal to its start')
+    return pipe
 
 
 # the bf16 attention kernels, which must run their products on the tensor cores
@@ -713,12 +864,33 @@ TENSOR_CORE_KERNELS = {'flash_attention': ['attn_fwd_wgmma'],
                                                'attn_bwd_dkdv_wgmma']}
 
 
-def report_build(name, seconds):
+def short_name(entry):
+    """A mangled kernel name in readable form: ``attn_fwd_wgmma<1>``,
+    ``vq_lookup<4>``, ``sample_rows<bf16,5>``, ``unpack_keys``."""
+    found = re.search(r'\d+((?:attn|vq|sample|unpack)_[a-z0-9_]+?)'
+                      r'(?:I(\w+?)EE|E)', entry)
+    if not found:
+        return entry
+    name, args = found.groups()
+    if args:
+        args = re.sub(r'^f', 'fp32,', args.replace('13__nv_bfloat16', 'bf16,'))
+        name += '<' + re.sub(r'Li(\d+)E?', r'\1,', args).rstrip(',') + '>'
+    return name
+
+
+def read_sass(name):
+    return subprocess.run(
+        [_build.cuda_tool('cuobjdump'), '-sass', str(_build.library_path(name))],
+        capture_output=True, text=True, check=True).stdout
+
+
+def report_build(name, seconds, sass):
     """One line per kernel of the library ``name``: registers, shared memory
-    and spills from ``ptxas -v``, and how often ``cuobjdump -sass`` shows the
-    tensor-core opcodes (``HGMMA`` for wgmma, ``HMMA`` for mma.sync),
+    and spills from ``ptxas -v``, and how often its SASS (``read_sass``)
+    shows the tensor-core opcodes (``HGMMA`` for wgmma, ``HMMA`` for mma.sync),
     ``ldmatrix`` (``LDSM``) and ``cp.async`` (``LDGSTS``) in it.  Fails on a
-    spill, and on a bf16 attention kernel without a tensor-core opcode."""
+    spill, on a bf16 attention kernel without a tensor-core opcode and on a
+    codebook lookup whose tiles do not come in by ``cp.async``."""
     log(f'build {name}: {seconds:.1f} s')
     entry = None
     usage = {}
@@ -728,9 +900,6 @@ def report_build(name, seconds):
             usage[entry] = []
         elif entry and ('spill' in ln or 'registers' in ln):
             usage[entry].append(ln.replace('ptxas info    :', '').strip())
-    sass = subprocess.run(
-        [_build.cuda_tool('cuobjdump'), '-sass', str(_build.library_path(name))],
-        capture_output=True, text=True, check=True).stdout
     counts = {}
     for ln in sass.splitlines():
         if 'Function :' in ln:
@@ -742,17 +911,73 @@ def report_build(name, seconds):
     for entry, lines in usage.items():
         check(entry in counts, f'{entry} is not in the compiled library')
         ops = counts[entry]
-        short = re.search(r'\d((?:attn|vq)_[a-z0-9_]+?)(?:ILi|EPK)', entry)
-        log(f'  {short.group(1) if short else entry}: {"; ".join(lines)}; SASS '
+        log(f'  {short_name(entry)}: {"; ".join(lines)}; SASS '
             + ' '.join(f'{op}={n}' for op, n in ops.items()))
         check(any('0 bytes spill stores, 0 bytes spill loads' in ln
                   for ln in lines), f'{entry} spills registers')
         if any(k in entry for k in TENSOR_CORE_KERNELS.get(name, ())):
             check(ops['HGMMA'] + ops['HMMA'] > 0,
                   f'{entry} does not use the tensor cores')
+        if short_name(entry).startswith('vq_lookup'):
+            check(ops['LDGSTS'] > 0, f'{entry} does not copy with cp.async')
     for kernel in TENSOR_CORE_KERNELS.get(name, ()):
         check(any(kernel in entry for entry in usage),
               f'{kernel} was not compiled')
+
+
+def profile_window(fn, what):
+    """One ``torch.profiler`` window over ``fn`` (which ends synchronised):
+    the ten device operations with the most time, the sum of device time
+    and its share of the window.  Report only: nothing is gated on it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # kernels and device copies only: a host-side operator's row repeats
+    # the device time of the kernels it launched
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        log(f'profile {what}: key_averages() shows no device time on this '
+            f'machine; window {window_ms:.3f} ms on the host clock')
+        return
+    rows.sort(key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    log(f'profile {what}: window {window_ms:.3f} ms (host clock, profiler on), '
+        f'device time {busy:.3f} ms = {100 * busy / window_ms:.1f} % of the '
+        f'window, {sum(r[1] for r in rows)} device operations of '
+        f'{len(rows)} kinds; the ten with the most time (calls, ms, name):')
+    for name, calls, ms in rows[:10]:
+        log(f'  {calls:6d} {ms:10.3f}  {name[:200]}')
+
+
+def profiles(serving, trained):
+    """Where the time of one unguided ``generate`` (the stage-2 phase's
+    bf16 pipeline) and of one training microbatch (the training phase's
+    pipeline) goes on the device."""
+    cfg = serving.config
+    g = torch.Generator(device='cuda').manual_seed(0)
+    ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
+    profile_window(lambda: serving.generate(
+        text=ctx, timesteps=16, topk=5, decode_steps='final', generator=g),
+        'generate B=8 16 steps bf16')
+    trained.eval()
+    imgs = seeded_images(8, 256, 3).bfloat16()
+    ctx = ctx.bfloat16()
+    noise = torch.rand(8, cfg.num_tokens, device='cuda', generator=g)
+    profile_window(lambda: loss_and_grads(trained, imgs, ctx, noise),
+                   'train microbatch B=8 forward+backward')
+
+
+# the libraries each kernel's check needs
+KERNEL_LIBRARIES = {'K1': ('flash_attention',),
+                    'K2': ('vq_lookup',), 'K3': ('sampling',),
+                    'K4': ('flash_attention', 'flash_attention_bwd')}
 
 
 def main():
@@ -772,30 +997,45 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    checks = {'K1': check_k1, 'K2': check_k2, 'K3': check_k3, 'K4': check_k4}
+    only = sys.argv[1:]
+    if any(name not in checks for name in only):
+        sys.exit(f'usage: chip_smoke.py [{" ".join(checks)}]')
+    libraries = _build.KERNELS if not only else tuple(dict.fromkeys(
+        lib for name in only for lib in KERNEL_LIBRARIES[name]))
     t0 = time.perf_counter()
-    seconds = _build.build()
-    for name in _build.KERNELS:
-        report_build(name, seconds[name])
-    g = torch.Generator(device='cuda').manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        sm.fused_gumbel_topk_sample(
-            torch.randn(64, 8192, device='cuda', generator=g).to(dtype), 1.0,
-            5, generator=g)
-    torch.cuda.synchronize()
-    log(f'build K1-K4 (nvcc in parallel + Triton first launch): '
+    seconds = _build.build(libraries)
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one cuobjdump each
+        sass = dict(zip(libraries, pool.map(read_sass, libraries)))
+    for name in libraries:
+        report_build(name, seconds[name], sass[name])
+    log(f'build (one nvcc per source, in parallel): '
         f'{time.perf_counter() - t0:.1f} s')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    if only:
+        for name in only:
+            checks[name](g)
+            torch.cuda.synchronize()
+        log(f'checked {" ".join(only)} only: {time.perf_counter() - t_start:.1f} s')
+        return
 
-    results = {'K1': check_k1(g), 'K2': check_k2(g), 'K3': check_k3(g),
-               'K4': check_k4(g)}
-    torch.cuda.empty_cache()
+    def phase(what, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f'phase {what}: {time.perf_counter() - t0:.1f} s')
+        return out
 
+    results = {name: phase(f'check {name}', fn, g) for name, fn in checks.items()}
     totals = {name: 0 for name in KERNEL_COUNTERS}
-    stage1(totals)
-    stage2(totals)
-    torch.cuda.empty_cache()
-    training(totals)
+    phase('stage 1', stage1, totals)
+    serving = phase('stage 2', stage2, totals)
+    serving.to('cpu')  # out of the training phase's peak memory
+    trained = phase('training', training, totals)
     for name, n in totals.items():
         check(n > 0, f'{name} never launched on the main path')
+    phase('profiles', profiles, serving.to('cuda'), trained)
 
     meta = {
         'K1': ('flash_attention_fwd', 'cuda',
@@ -803,8 +1043,8 @@ def main():
                'paintmind_tpu/ops/flash_attention.py:60'),
         'K2': ('vq_lookup_fwd', 'cuda', 'paintmind_tpu_torch/csrc/vq_lookup.cu',
                'paintmind_tpu/ops/vq_lookup.py:81'),
-        'K3': ('fused_gumbel_topk_sample', 'triton',
-               'paintmind_tpu_torch/ops/sampling.py',
+        'K3': ('fused_gumbel_topk_sample', 'cuda',
+               'paintmind_tpu_torch/csrc/sampling.cu',
                'paintmind_tpu/ops/sampling.py:136'),
         'K4': ('flash_attention_bwd', 'cuda',
                'paintmind_tpu_torch/csrc/flash_attention_bwd.cu',

@@ -3,114 +3,266 @@
 // Replaces the Pallas TPU kernel paintmind_tpu/ops/vq_lookup.py::
 // _fused_nearest_codes (kernel _lookup_kernel): argmax_j z.e_j over
 // l2-normalised rows, ties to the lowest index, without writing the
-// (T, C) score matrix to device memory.  The TPU grid carried a running
-// (best value, best index) from one codebook block to the next; here blocks
-// run in no order, so each block owns a tile of 32 tokens outright (one per
-// lane) and loops over the whole codebook itself.  The block's 8 warps split
-// every shared-memory codebook tile (32 codes each), keep a running best
-// under a strict '>' (so a later, equal score never replaces an earlier
-// index), and the 8 partial bests are reduced inside the block, again
-// preferring the lower index on equal scores.  Nothing crosses blocks.
+// (T, C) score matrix to device memory.
 //
-// Layout: z (T, 32) fp32, e (C, 32) fp32, out (T,) int32, contiguous.
-// Bound on this card: 2*T*C*32 fp32 operations (the bytes are ~2 MB); they
-// run on the fp32 CUDA cores with broadcast shared-memory reads.
+// Bound on this card: the 2*T*C*32 fp32 operations (the operands are ~2 MB).
+// They stay on the fp32 CUDA cores: the result must equal fp32 argmax except
+// at score gaps under 1e-5, which one tensor-core pass (three decimal digits)
+// cannot give.  What limits FFMA on the CUDA cores is the shared-memory loads
+// beside them, so the design is a register-tiled product:
+//
+//   * A block owns BT = 64 tokens and walks the codebook in tiles of BC = 128
+//     codes.  A thread holds 4 x 8 scores in registers: per 16-byte step in d
+//     it loads 4 + 8 float4 and issues 128 FFMA (1 : 10.7, where one token
+//     against one code at a time is 1 : 4).
+//   * Both tiles are row-major in shared memory with rows padded to 36 floats:
+//     row r starts at bank 4r mod 32, so the eight lanes of a warp that read
+//     eight consecutive code rows in one LDS.128 phase touch every bank once,
+//     and lanes that share a token or a code read one address (broadcast).  A
+//     thread's codes are cl, cl + 16, ... (cl its code lane): ascending.
+//   * Codebook tiles come in by 16-byte cp.async into a two-stage ring while
+//     the previous tile is multiplied; rows past C are zero-filled and their
+//     scores are skipped by index.
+//   * Each thread folds its scores into a running (best, index) per token
+//     under a strict '>' in ascending code order, so equal scores keep the
+//     lower index within a thread.  Across the lanes of a warp that share a
+//     token (shuffles), across the two warps that split a tile's codes (shared
+//     memory) and across blocks the rule is explicit: greater value, or equal
+//     value and lower index.
+//   * T / 64 blocks do not fill 132 SMs below T of some 8000, so the codebook
+//     is also split over gridDim.y (the caller chooses the number of splits
+//     from T and the SM count).  Each split's best goes through a 64-bit
+//     atomicMax on (order-preserving bits of the score << 32) |
+//     (0xFFFFFFFF - index) into scratch that the caller zeroed, and a second
+//     small kernel unpacks the index.  A maximum does not depend on the order
+//     of the atomics, so the result is the same bits on every run and ties
+//     still go to the lower index.  With one split there is no scratch and no
+//     second kernel: the block writes the index itself.
+//
+// Layout: z (T, 32) fp32, e (C, 32) fp32, out (T,) int32, contiguous, 16-byte
+// aligned.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "attention_mma.cuh"  // cp.async wrappers
 
 namespace {
 
-constexpr int DZ = 32;            // code dim
-constexpr int TT = 32;            // tokens per block, one per lane
-constexpr int WARPS = 8;          // warps splitting each codebook tile
-constexpr int CT = WARPS * 32;    // codes per shared-memory tile
-constexpr int THREADS = WARPS * 32;
+using attn::cp_async_16;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
+using attn::smem_u32;
 
-__global__ void __launch_bounds__(THREADS)
-vq_lookup(const float* __restrict__ z, const float* __restrict__ e,
-          int* __restrict__ out, int T, int C) {
-  __shared__ __align__(16) float es[CT][DZ];  // 32 KB
-  __shared__ float best_v[WARPS][TT];
-  __shared__ int best_i[WARPS][TT];
+constexpr int DZ = 32;        // code dim
+constexpr int ROW = DZ + 4;   // padded shared-memory row, floats
+constexpr int BT = 64;        // tokens per block
+constexpr int BC = 128;       // codes per tile
+constexpr int TM = 4;         // tokens per thread
+constexpr int TN = 8;         // codes per thread
+constexpr int CODE_LANES = BC / TN;   // 16: two warps of 8 code lanes
+constexpr int TOKEN_LANES = BT / TM;  // 16: eight warps of 4 token lanes, in pairs
+constexpr int THREADS = TOKEN_LANES * CODE_LANES;
+constexpr unsigned FULL = 0xffffffffu;
+
+// (value, index) a before (value, index) b: argmax's order, first index on a tie
+__device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
+  return av > bv || (av == bv && ai < bi);
+}
+
+// Bits that order as the floats do (negative, zero, positive; -0 is made +0
+// first so that equal scores give equal bits), over the complement of the
+// index: the maximum key is the greatest score at its lowest index.
+__device__ __forceinline__ unsigned long long pack_key(float v, int i) {
+  uint32_t u = __float_as_uint(__fadd_rn(v, 0.f));
+  u ^= (u >> 31) ? 0xFFFFFFFFu : 0x80000000u;
+  return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (uint32_t)i);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: see codebook_splits
+vq_lookup(const float* __restrict__ z, const float* __restrict__ e, int* __restrict__ out,
+          unsigned long long* __restrict__ keys, int T, int C, int tiles_per_split) {
+  __shared__ __align__(16) float zs[BT * ROW];
+  __shared__ __align__(16) float es[2][BC * ROW];
+  __shared__ float red_v[BT];
+  __shared__ int red_i[BT];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int t = blockIdx.x * TT + lane;
+  const int cl = (warp & 1) * 8 + (lane & 7);    // code lane, 0..15
+  const int tl = (warp >> 1) * 4 + (lane >> 3);  // token lane, 0..15
+  const int t0 = blockIdx.x * BT;
+  const int n_tiles = (C + BC - 1) / BC;
+  const int tile_begin = blockIdx.y * tiles_per_split;
+  const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
 
-  float zr[DZ];
-  if (t < T) {
-    const float4* zp = reinterpret_cast<const float4*>(z + (long long)t * DZ);
+  // A tile is BC * DZ contiguous floats of e: thread i copies the 16-byte
+  // chunks i, i + THREADS, ... to row (chunk >> 3), column chunk & 7.
+  const uint32_t tile_dst = ((tid >> 3) * ROW + (tid & 7) * 4) * 4;
+  constexpr int COPIES = BC * (DZ / 4) / THREADS;
+  constexpr int COPY_ROWS = THREADS / 8;  // rows between a thread's copies
+  auto copy_codes = [&](int stage, int tile) {
+    const uint32_t dst = smem_u32(es[stage]) + tile_dst;
+    const float* src = e + (long long)tile * (BC * DZ) + tid * 4;
+    if (tile * BC + BC <= C) {
+#pragma unroll
+      for (int j = 0; j < COPIES; ++j)
+        cp_async_16(dst + j * COPY_ROWS * ROW * 4, src + j * THREADS * 4);
+    } else {  // the ragged last tile: zero-fill, and read nothing past e
+#pragma unroll
+      for (int j = 0; j < COPIES; ++j) {
+        const bool ok = tile * BC + (tid >> 3) + j * COPY_ROWS < C;
+        cp_async_16(dst + j * COPY_ROWS * ROW * 4, ok ? src + j * THREADS * 4 : e, ok);
+      }
+    }
+  };
+
+  {
+    const uint32_t dst = smem_u32(zs);
+    for (int i = tid; i < BT * (DZ / 4); i += THREADS) {
+      const int row = i >> 3, chunk = i & 7;
+      const bool ok = t0 + row < T;
+      cp_async_16(dst + (row * ROW + chunk * 4) * 4,
+                  ok ? z + (long long)(t0 + row) * DZ + chunk * 4 : z, ok);
+    }
+  }
+  copy_codes(0, tile_begin);
+  cp_async_commit();
+
+  float best[TM];
+  int arg[TM];
+#pragma unroll
+  for (int t = 0; t < TM; ++t) {
+    best[t] = -INFINITY;
+    arg[t] = tile_begin * BC;
+  }
+
+  const float4* zp = reinterpret_cast<const float4*>(zs) + tl * (ROW / 4);
+  for (int tile = tile_begin; tile < tile_end; ++tile) {
+    const int stage = (tile - tile_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // the tile has landed; every thread is done with the other stage
+    if (tile + 1 < tile_end) copy_codes(stage ^ 1, tile + 1);
+    cp_async_commit();
+
+    float acc[TM][TN];
+#pragma unroll
+    for (int t = 0; t < TM; ++t)
+#pragma unroll
+      for (int i = 0; i < TN; ++i) acc[t][i] = 0.f;
+    const float4* ep = reinterpret_cast<const float4*>(es[stage]) + cl * (ROW / 4);
 #pragma unroll
     for (int d4 = 0; d4 < DZ / 4; ++d4) {
-      const float4 zz = zp[d4];
-      zr[4 * d4 + 0] = zz.x;
-      zr[4 * d4 + 1] = zz.y;
-      zr[4 * d4 + 2] = zz.z;
-      zr[4 * d4 + 3] = zz.w;
-    }
-  } else {
+      float4 zv[TM];
 #pragma unroll
-    for (int d = 0; d < DZ; ++d) zr[d] = 0.f;
-  }
-
-  float best = -INFINITY;
-  int arg = 0;
-  for (int c0 = 0; c0 < C; c0 += CT) {
-    const int nc = min(CT, C - c0);
-    __syncthreads();
-    for (int i = tid; i < CT * DZ; i += THREADS) {
-      const int j = i / DZ;
-      es[j][i % DZ] = j < nc ? e[(long long)c0 * DZ + i] : 0.f;
-    }
-    __syncthreads();
-    const int jlo = warp * 32;
-    const int jhi = min(jlo + 32, nc);
-    for (int j = jlo; j < jhi; ++j) {
-      const float4* er = reinterpret_cast<const float4*>(es[j]);
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      for (int t = 0; t < TM; ++t) zv[t] = zp[t * TOKEN_LANES * (ROW / 4) + d4];
 #pragma unroll
-      for (int d4 = 0; d4 < DZ / 4; ++d4) {
-        const float4 ee = er[d4];
-        s0 = fmaf(zr[4 * d4 + 0], ee.x, s0);
-        s1 = fmaf(zr[4 * d4 + 1], ee.y, s1);
-        s2 = fmaf(zr[4 * d4 + 2], ee.z, s2);
-        s3 = fmaf(zr[4 * d4 + 3], ee.w, s3);
-      }
-      const float s = (s0 + s1) + (s2 + s3);
-      if (s > best) {  // strict: equal later codes keep the earlier index
-        best = s;
-        arg = c0 + j;
+      for (int i = 0; i < TN; ++i) {
+        const float4 ev = ep[i * CODE_LANES * (ROW / 4) + d4];
+#pragma unroll
+        for (int t = 0; t < TM; ++t) {
+          acc[t][i] = fmaf(zv[t].x, ev.x, acc[t][i]);
+          acc[t][i] = fmaf(zv[t].y, ev.y, acc[t][i]);
+          acc[t][i] = fmaf(zv[t].z, ev.z, acc[t][i]);
+          acc[t][i] = fmaf(zv[t].w, ev.w, acc[t][i]);
+        }
       }
     }
+
+    // Fold the tile into the running best in ascending code order: a strict
+    // '>' keeps the lower index on equal scores.  (The tile's maximum first and
+    // its index only when it wins was slower: with 128 running bests a warp,
+    // some lane wins in nearly every tile.)
+    const int c0 = tile * BC + cl;
+    const bool whole = tile * BC + BC <= C;
+#pragma unroll
+    for (int i = 0; i < TN; ++i) {
+      const int code = c0 + i * CODE_LANES;
+      if (whole || code < C) {  // codes past C cannot win
+#pragma unroll
+        for (int t = 0; t < TM; ++t) {
+#ifdef K2_NO_FOLD  // timing experiment only (kernel_times.py): no compare, no select
+          best[t] += acc[t][i];
+#else
+          if (acc[t][i] > best[t]) {
+            best[t] = acc[t][i];
+            arg[t] = code;
+          }
+#endif
+        }
+      }
+    }
   }
 
-  best_v[warp][lane] = best;
-  best_i[warp][lane] = arg;
+  // across the eight code lanes of the warp
+#pragma unroll
+  for (int t = 0; t < TM; ++t) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float ov = __shfl_xor_sync(FULL, best[t], off);
+      const int oi = __shfl_xor_sync(FULL, arg[t], off);
+      if (before(ov, oi, best[t], arg[t])) {
+        best[t] = ov;
+        arg[t] = oi;
+      }
+    }
+  }
+  // across the two warps that split the tile's codes
+  if ((warp & 1) == 1 && (lane & 7) == 0) {
+#pragma unroll
+    for (int t = 0; t < TM; ++t) {
+      red_v[tl + t * TOKEN_LANES] = best[t];
+      red_i[tl + t * TOKEN_LANES] = arg[t];
+    }
+  }
   __syncthreads();
-  if (warp == 0) {
-    for (int w = 1; w < WARPS; ++w) {
-      const float v = best_v[w][lane];
-      const int i = best_i[w][lane];
-      if (v > best || (v == best && i < arg)) {
-        best = v;
-        arg = i;
+  if ((warp & 1) == 0 && (lane & 7) == 0) {
+#pragma unroll
+    for (int t = 0; t < TM; ++t) {
+      const int row = tl + t * TOKEN_LANES;
+      if (before(red_v[row], red_i[row], best[t], arg[t])) {
+        best[t] = red_v[row];
+        arg[t] = red_i[row];
+      }
+      if (t0 + row < T) {
+        if (keys == nullptr)
+          out[t0 + row] = arg[t];
+        else
+          atomicMax(keys + t0 + row, pack_key(best[t], arg[t]));
       }
     }
-    if (t < T) out[t] = arg;
   }
+}
+
+__global__ void unpack_keys(const unsigned long long* __restrict__ keys, int* __restrict__ out,
+                            int T) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < T) out[t] = (int)(0xFFFFFFFFu - (uint32_t)keys[t]);
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch.
-extern "C" int vq_lookup_fwd(const void* z, const void* e, void* out, int T, int C,
-                             int dim, void* stream) {
-  if (dim != DZ || T <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (T + TT - 1) / TT;
-  vq_lookup<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<const float*>(e),
-      static_cast<int*>(out), T, C);
-  return (int)cudaGetLastError();
+// Returns the cudaError_t of the launch.  splits == 1: keys is unused.
+// splits > 1: the codebook's tiles are divided over `splits` blocks per token
+// tile, and keys is (T,) 64-bit scratch that the caller has set to zero.
+extern "C" int vq_lookup_fwd(const void* z, const void* e, void* out, void* keys, int T, int C,
+                             int dim, int splits, void* stream) {
+  const int n_tiles = (C + BC - 1) / BC;
+  if (dim != DZ || T <= 0 || C <= 0 || splits < 1 || splits > n_tiles ||
+      (splits > 1 && keys == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  const dim3 grid((T + BT - 1) / BT, (n_tiles + tiles_per_split - 1) / tiles_per_split);
+  unsigned long long* kp = splits > 1 ? static_cast<unsigned long long*>(keys) : nullptr;
+  vq_lookup<<<grid, THREADS, 0, st>>>(static_cast<const float*>(z), static_cast<const float*>(e),
+                                      static_cast<int*>(out), kp, T, C, tiles_per_split);
+  int err = (int)cudaGetLastError();
+  if (err == 0 && kp != nullptr) {
+    unpack_keys<<<(T + 255) / 256, 256, 0, st>>>(kp, static_cast<int*>(out), T);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }

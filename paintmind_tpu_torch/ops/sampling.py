@@ -1,4 +1,4 @@
-"""Fused MaskGIT sampling head (kernel K3, Triton) and its plain version.
+"""Fused MaskGIT sampling head (kernel K3, CUDA C++) and its plain version.
 
 Replaces ``paintmind_tpu/ops/sampling.py::_fused_gumbel_topk_sample``
 (Pallas kernel ``_sample_kernel``).  One pass over each logits row produces
@@ -9,28 +9,44 @@ Replaces ``paintmind_tpu/ops/sampling.py::_fused_gumbel_topk_sample``
   * ``conf``: softmax(original logits)[pred], the re-mask confidence.
 
 What bounds it on an H100: the bytes.  The logits are read once (268 MB in
-fp32, 134 MB in bf16, at B = 8 · 1024 tokens · 8192 codes) and the work per
-element is a few dozen operations, far below the card's operations-per-byte
-balance.  The kernel therefore keeps each row in registers (one program per
-row, the whole 8192-wide row at once) and does the logsumexp, the k iterated
-maxima, the noise and the argmax there; nothing but (pred, conf) is written.
+fp32, 134 MB in bf16, at B = 8 x 1024 tokens x 8192 codes) and the work a
+logit cannot avoid is a max, an exp and a compare.  The TPU kernel's row
+reductions (some nineteen of them) are each a barrier across a block here,
+and its noise for every column is 8192 Philox evaluations where k are used.
+The kernel (``csrc/sampling.cu``) therefore gives a row to one warp, which
+streams it once in 16-byte loads: each lane keeps an online log-sum-exp and
+a sorted list of its own k best (value, column) in registers (checked
+against a bound on the row's k-th value that the lanes share now and then,
+so that most chunks cost one compare), the lanes merge by shuffle
+tournaments under the total order (value descending, column ascending),
+which is exactly ``topk_keep_mask``, and the noise is drawn for the k
+survivors alone.  There is no barrier and no shared memory.
 
-Randomness: Triton's Philox stream (``tl.rand``) keyed by a per-call seed
-drawn from the caller's ``torch.Generator``, at counter row·V + column, so
-two calls never share a stream unless their seeds are equal.  It is not
-the TPU's stream, nor ``jax.random``'s: the kernel is held against its plain
-version at temperature ~0 (deterministic) and against the top-k softmax
-distribution at temperature 1.
+Randomness: Philox 4x32-10 under a 64-bit per-call seed drawn from the
+caller's ``torch.Generator``, at counter (column, row low, row high, 0), so
+the noise of an entry depends on nothing but (seed, row, column).
+``philox_uniform`` / ``philox_gumbel`` are the same generator in PyTorch
+integer arithmetic: with them the kernel is held against its plain version
+sample for sample.  It is not the TPU's stream, nor ``jax.random``'s.
+``sample_streamed`` is the kernel's algorithm, lane for lane, on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
+
+from . import _build
 
 launches = 0  # kernel launches so far; chip_smoke.py resets and reads it
 
 NEG_INF = -1e30
-_kernel_fn = None
+MAX_K = 16                  # the kernel's longest per-lane list
+LIST_SIZES = (1, 5, 16)     # list lengths the kernel is compiled for
+UNROLL = 4                  # 16-byte chunks a lane has in flight (one group)
+_fn = None
 
 
 def topk_keep_mask(l, k):
@@ -95,69 +111,239 @@ def gumbel_topk_sample_plain(logits, temperature, k, noise):
     return pred[..., 0].to(torch.int32), conf[..., 0]
 
 
+def draw_seed(generator, device):
+    """The kernel's per-call seed: one int64 below 2**62 drawn on ``device``
+    from ``generator``, without a host synchronisation."""
+    return torch.randint(0, 2 ** 62, (1,), generator=generator, device=device,
+                         dtype=torch.int64)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(m, c):
+    """(high, low) 32-bit words of the constant m times the int64 tensor c,
+    both below 2**32, without leaving int64's range: c is cut in 16-bit
+    halves, so no partial product passes 2**48."""
+    a = m * (c & 0xFFFF)
+    b = m * (c >> 16)
+    return (b + (a >> 16)) >> 16, (((b & 0xFFFF) << 16) + a) & _MASK32
+
+
+def philox4x32(counter, key):
+    """Philox 4x32-10 (Salmon et al. 2011): four counter words and two key
+    words, int64 tensors below 2**32 -> the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _MASK32
+        k1 = (k1 + 0xBB67AE85) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_uniform(seed, rows, cols):
+    """The kernel's uniforms in PyTorch integer arithmetic: Philox 4x32-10
+    with key (seed low word, seed high word) at counter (column, row low
+    word, row high word, 0); the first output word's top 24 bits times
+    2**-24, so u lies in [0, 1).  seed: int or int64 tensor of one element;
+    rows, cols: broadcastable integer tensors.  Returns fp32 of the
+    broadcast shape."""
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    cols = torch.as_tensor(cols, dtype=torch.int64, device=rows.device)
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=rows.device).reshape(())
+    rows, cols = torch.broadcast_tensors(rows, cols)
+    word = philox4x32(
+        (cols & _MASK32, rows & _MASK32, (rows >> 32) & _MASK32,
+         torch.zeros_like(cols)),
+        (seed & _MASK32, (seed >> 32) & _MASK32))[0]
+    return (word >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def philox_gumbel(seed, shape, *, device=None):
+    """The Gumbel noise (..., V) the kernel would draw for logits of this
+    shape under ``seed`` (rows are the flattened leading dimensions), had it
+    drawn it for every column: -log(-log(max(u, 1e-20)))."""
+    v = shape[-1]
+    t = int(np.prod(shape[:-1], dtype=np.int64))
+    rows = torch.arange(t, device=device).reshape(*shape[:-1], 1)
+    u = philox_uniform(seed, rows, torch.arange(v, device=device))
+    return -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
+
+
+_LOG2E = np.float32(1.4426950408889634)
+_NO_COL = 0x7FFFFFFF
+
+
+def _list_size(k):
+    return next(n for n in LIST_SIZES if n >= k)
+
+
+def _before(av, ac, bv, bc):
+    """(value, column) a before b in the selection's total order."""
+    return (av > bv) | ((av == bv) & (ac < bc))
+
+
+def _stream_row(x, noise, temp, k, vec, head):
+    """One row through the kernel's algorithm.  x, noise: (V,) fp32 numpy;
+    head: elements before the row's first 16-byte boundary.  Returns (pred,
+    conf, kept columns in order)."""
+    v = x.shape[0]
+    size = _list_size(k)
+    lanes = np.arange(32)
+    val = np.full((32, size), -np.inf, np.float32)
+    col = np.full((32, size), _NO_COL, np.int64)
+    m = np.full(32, -np.inf, np.float32)
+    s = np.zeros(32, np.float32)
+    thr = np.full(32, -np.inf, np.float32)  # max(val[:, -1], the warp's bound)
+
+    def rescale(a, b):
+        with np.errstate(invalid='ignore'):
+            return np.where(a == b, np.float32(1),
+                            np.exp2((a - b) * _LOG2E)).astype(np.float32)
+
+    def consume(cols, active):
+        """cols: (32, N) columns, one run per lane; active: lanes that have
+        this chunk."""
+        nonlocal m, s, thr
+        xs = x[np.where(active[:, None], cols, 0)]
+        nm = np.maximum(m, xs.max(1))
+        part = np.exp2((xs - nm[:, None]) * _LOG2E).sum(1, dtype=np.float32)
+        s = np.where(active, s * rescale(m, nm) + part, s)
+        m = np.where(active, nm, m)
+        for e in range(cols.shape[1]):
+            take = active & (xs[:, e] > thr)  # strict
+            val[take, -1] = xs[take, e]
+            col[take, -1] = cols[take, e]
+            for i in range(size - 1, 0, -1):
+                up = take & (val[:, i] > val[:, i - 1])  # strict
+                val[np.ix_(up, [i, i - 1])] = val[np.ix_(up, [i - 1, i])]
+                col[np.ix_(up, [i, i - 1])] = col[np.ix_(up, [i - 1, i])]
+            thr = np.where(take, np.maximum(thr, val[:, -1]), thr)
+
+    def warp_kth():
+        """A lower bound on the k-th largest value met so far: k rounds of
+        the maximum head; every lane that holds it pops."""
+        heads = val.copy()
+        kth = np.float32(-np.inf)
+        for _ in range(k):
+            kth = heads[:, 0].max()
+            pop = heads[:, 0] == kth
+            heads[pop] = np.concatenate(
+                [heads[pop, 1:], np.full((pop.sum(), 1), -np.inf, np.float32)], 1)
+        return kth
+
+    head = min(head, v)
+    consume(lanes[:, None], lanes < head)
+    nvec = (v - head) // vec
+    for c0 in range(0, nvec, 32):  # lane i takes chunks i, i + 32, ...
+        chunk = c0 + lanes
+        consume(head + chunk[:, None] * vec + np.arange(vec)[None, :],
+                chunk < nvec)
+        # after the groups 1, 2, 4, ... of UNROLL chunks, while more are to
+        # come, the lanes share a bound: later columns must beat it strictly
+        group, rest = divmod(c0 // 32 + 1, UNROLL)
+        if rest == 0 and group & (group - 1) == 0 and c0 + 32 < nvec:
+            thr = np.maximum(thr, warp_kth())
+    tail = head + nvec * vec + lanes
+    consume(tail[:, None], tail < v)
+
+    for off in (16, 8, 4, 2, 1):
+        om, os_ = m[lanes ^ off], s[lanes ^ off]
+        nm = np.maximum(m, om)
+        s = s * rescale(m, nm) + os_ * rescale(om, nm)
+        m = nm
+
+    kv = np.full(32, -np.inf, np.float32)
+    kc = np.full(32, _NO_COL, np.int64)
+    for r in range(k):
+        bv, bc = val[:, 0].copy(), col[:, 0].copy()
+        for off in (16, 8, 4, 2, 1):
+            ov, oc = bv[lanes ^ off], bc[lanes ^ off]
+            take = _before(ov, oc, bv, bc)
+            bv, bc = np.where(take, ov, bv), np.where(take, oc, bc)
+        kv[r], kc[r] = bv[r], bc[r]
+        pop = col[:, 0] == bc
+        val[pop] = np.concatenate(
+            [val[pop, 1:], np.full((pop.sum(), 1), -np.inf, np.float32)], 1)
+        col[pop] = np.concatenate(
+            [col[pop, 1:], np.full((pop.sum(), 1), _NO_COL, np.int64)], 1)
+    kept = kc[:k].copy()
+
+    have = kc != _NO_COL
+    score = np.full(32, -np.inf, np.float32)
+    score[have] = kv[have] / np.float32(temp) + noise[kc[have]]
+    for off in (16, 8, 4, 2, 1):
+        os_, oc, ov = score[lanes ^ off], kc[lanes ^ off], kv[lanes ^ off]
+        take = _before(os_, oc, score, kc)  # first index on a tie
+        score = np.where(take, os_, score)
+        kc, kv = np.where(take, oc, kc), np.where(take, ov, kv)
+    conf = np.exp(kv[0] - m[0] - np.log(s[0]), dtype=np.float32)
+    return kc[0], conf, kept
+
+
+def sample_streamed(logits, temperature, k, noise, *, vec=None, misalign=0):
+    """The kernel's algorithm on the CPU, lane for lane: each row cut into
+    32 lanes x 16-byte chunks of ``vec`` elements (8 for bf16, 4 for fp32;
+    default by the logits' type) after ``head`` single elements up to the
+    row's first 16-byte boundary (``misalign``: the first row's offset from
+    one, in elements), per-lane sorted lists with the strict ``>`` insert
+    against the lane's threshold, the bound the lanes share after groups 1,
+    2, 4, ... of ``UNROLL`` chunks, the online log-sum-exp, the
+    shuffle-tournament merges with their tie rules.  ``noise`` (..., V) is read at the k survivors only.  Returns
+    (pred int32, conf fp32, keep bool (..., V))."""
+    shape = logits.shape[:-1]
+    v = logits.shape[-1]
+    if vec is None:
+        vec = 16 // logits.element_size()
+    if not 1 <= k <= min(v, MAX_K):
+        raise ValueError(f'top-k {k} out of range for {v} classes and lists '
+                         f'of at most {MAX_K}')
+    x = logits.detach().float().reshape(-1, v).numpy()
+    g = noise.detach().float().reshape(-1, v).numpy()
+    temps = torch.clamp(_row_temperatures(temperature, shape, 'cpu'),
+                        min=1e-10).numpy()
+    pred = np.zeros(x.shape[0], np.int32)
+    conf = np.zeros(x.shape[0], np.float32)
+    keep = np.zeros(x.shape, bool)
+    for r in range(x.shape[0]):
+        head = -(misalign + r * v) % vec
+        pred[r], conf[r], kept = _stream_row(x[r], g[r], temps[r], k, vec, head)
+        keep[r, kept] = True
+    return (torch.from_numpy(pred).reshape(shape),
+            torch.from_numpy(conf).reshape(shape),
+            torch.from_numpy(keep).reshape(logits.shape))
+
+
 def _kernel():
-    """Builds the Triton kernel at its first launch (the CPU sandbox that
-    runs the tests has no triton)."""
-    global _kernel_fn
-    if _kernel_fn is not None:
-        return _kernel_fn
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def sample_kernel(logits_ptr, temp_ptr, seed_ptr, pred_ptr, conf_ptr, V,
-                      stride, K: tl.constexpr, BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        col = tl.arange(0, BLOCK)
-        valid = col < V
-        l = tl.load(logits_ptr + row.to(tl.int64) * stride + col, mask=valid,
-                    other=float('-inf')).to(tl.float32)
-
-        row_max = tl.max(l, axis=0)
-        lse = tl.log(tl.sum(tl.exp(l - row_max), axis=0))
-
-        # exact top-k, ties to the lower index (topk_keep_mask)
-        thr = row_max
-        cnt = tl.sum((l >= thr).to(tl.int32), axis=0)
-        for _ in tl.static_range(K - 1):
-            nxt = tl.max(tl.where(l < thr, l, -1e30), axis=0)
-            thr = tl.where(cnt < K, nxt, thr)
-            cnt = tl.sum((l >= thr).to(tl.int32), axis=0)
-        gt = l > thr
-        need = K - tl.sum(gt.to(tl.int32), axis=0)
-        eq = l == thr
-        idx = tl.where(eq, col, 1073741824)
-        cut = tl.min(idx, axis=0)
-        for i in tl.static_range(1, K):
-            nxt_i = tl.min(tl.where(idx > cut, idx, 1073741824), axis=0)
-            cut = tl.where(i < need, nxt_i, cut)
-        keep = gt | (eq & (col <= cut))
-
-        seed = tl.load(seed_ptr)
-        u = tl.rand(seed, row * V + col)
-        g = -tl.log(-tl.log(tl.maximum(u, 1e-20)))
-        temp = tl.maximum(tl.load(temp_ptr + row), 1e-10)
-        masked = tl.where(keep, l / temp + g, -1e30)
-        pred = tl.argmax(masked, axis=0)
-
-        picked = tl.max(tl.where(col == pred, l, -1e30), axis=0)
-        conf = tl.exp(picked - row_max - lse)
-        tl.store(pred_ptr + row, pred.to(tl.int32))
-        tl.store(conf_ptr + row, conf)
-
-    _kernel_fn = sample_kernel
-    return _kernel_fn
+    global _fn
+    if _fn is None:
+        fn = _build.load('sampling').sample_fwd
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def fused_gumbel_topk_sample(logits, temperature, k=5, *, generator=None):
     """K3 on a CUDA tensor, the plain version (with noise drawn from
-    ``generator``) on a CPU tensor.  logits: (..., V) fp32 or bf16;
-    temperature: scalar or per-sample (B,) (B = logits.shape[0]).  Returns
+    ``generator``) on a CPU tensor.  logits: (..., V) fp32 or bf16,
+    contiguous; temperature: scalar or per-sample (B,) (B =
+    logits.shape[0]), clamped at 1e-10.  The kernel takes k <= 16 (the JAX
+    function takes any k; every entry point defaults to 1 or 5).  Returns
     (pred int32 (...,), conf fp32 (...,))."""
     if logits.device.type == 'cpu':
         noise = gumbel_noise(logits.shape, generator=generator,
                              device=logits.device)
         return gumbel_topk_sample_plain(logits, temperature, k, noise)
+    if k > MAX_K:
+        raise ValueError(f'fused_gumbel_topk_sample: the kernel keeps at most '
+                         f'{MAX_K} candidates per row, got top-k {k}')
     if logits.device.type != 'cuda':
         raise ValueError(f'fused_gumbel_topk_sample: device {logits.device}')
     if logits.dtype not in (torch.float32, torch.bfloat16):
@@ -169,19 +355,35 @@ def fused_gumbel_topk_sample(logits, temperature, k=5, *, generator=None):
     v = logits.shape[-1]
     if not 1 <= k <= v:
         raise ValueError(f'top-k {k} out of range for {v} classes')
+    if v >= 2 ** 31:
+        raise ValueError(f'{v} classes: columns are 32-bit in the kernel')
     t = logits.numel() // v
-    if t * v >= 2 ** 31:
-        raise ValueError(f'{t} x {v} logits: the Philox counter would overflow')
-    temps = _row_temperatures(temperature, shape, logits.device).contiguous()
-    seed = torch.randint(0, 2 ** 30, (1,), generator=generator,
-                         device=logits.device, dtype=torch.int32)
+    # a host scalar goes in by value; a device scalar or a per-sample (B,)
+    # vector by pointer, indexed in the kernel by row // rows_per_temp
+    temp = torch.as_tensor(temperature, dtype=torch.float32)
+    temp_value, rows_per_temp = 1.0, max(t, 1)
+    if temp.ndim == 0 and temp.device.type == 'cpu':
+        temp_value, temp = float(temp), None
+    elif temp.ndim == 1 and shape and temp.numel() == shape[0]:
+        rows_per_temp = max(t // shape[0], 1)
+    elif temp.ndim != 0:
+        raise ValueError(f'temperature of shape {tuple(temp.shape)} for '
+                         f'logits {tuple(logits.shape)}: a scalar or (B,)')
+    if temp is not None:
+        temp = temp.to(logits.device).reshape(-1).contiguous()
+    seed = draw_seed(generator, logits.device)
     pred = torch.empty(shape, dtype=torch.int32, device=logits.device)
     conf = torch.empty(shape, dtype=torch.float32, device=logits.device)
     if t == 0:
         return pred, conf
     global launches
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
     with torch.cuda.device(logits.device):
-        _kernel()[(t,)](logits, temps, seed, pred, conf, v, v, K=k,
-                        BLOCK=1 << (v - 1).bit_length(), num_warps=8)
+        err = _kernel()(logits.data_ptr(),
+                        int(logits.dtype == torch.bfloat16),
+                        None if temp is None else temp.data_ptr(), temp_value,
+                        rows_per_temp, seed.data_ptr(), pred.data_ptr(),
+                        conf.data_ptr(), t, v, k, stream)
+    _build.check(err, 'sampling')
     launches += 1
     return pred, conf

@@ -1,8 +1,11 @@
 """Port kernels' plain versions held against the JAX package on the CPU:
 flash attention and the VQ lookup against the Pallas kernels in interpret
 mode, the sampling head's top-k mask and arithmetic against the JAX math on
-shared Gumbel noise.  On a CPU tensor each port wrapper takes its plain
-version and launches nothing."""
+shared Gumbel noise.  The CUDA kernels' algorithms are held the same way
+through their CPU emulations (``sample_streamed``, ``nearest_codes_tiled``)
+and the sampling head's Philox generator against its published test
+vectors.  On a CPU tensor each port wrapper takes its plain version and
+launches nothing."""
 
 import shutil
 
@@ -237,3 +240,205 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
                                 torch.empty(8, 32, device='meta'))
     with pytest.raises(ValueError):
         tsm.fused_gumbel_topk_sample(torch.empty(4, 8, device='meta'), 1.0)
+    # the sampling kernel keeps at most 16 candidates per row
+    with pytest.raises(ValueError, match='at most 16'):
+        tsm.fused_gumbel_topk_sample(torch.empty(4, 64, device='meta'), 1.0, 17)
+    with pytest.raises(ValueError, match='at most 16'):
+        tsm.sample_streamed(torch.zeros(4, 64), 1.0, 17, torch.zeros(4, 64))
+
+
+# ---------------------------------------------------------------------------
+# K3's generator: Philox 4x32-10 in PyTorch integer arithmetic
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('counter,key,want', [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2,
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+])
+def test_philox_known_answers(counter, key, want):
+    """The three known-answer vectors of Philox 4x32-10 from the Random123
+    distribution (kat_vectors): exact."""
+    got = tsm.philox4x32([torch.tensor([c]) for c in counter],
+                         [torch.tensor([k]) for k in key])
+    assert tuple(int(w) for w in got) == want
+
+
+def test_philox_uniform_is_a_function_of_seed_row_and_column():
+    """The same (seed, row, column) gives the same number whatever the shape
+    it is asked in; other rows, columns and seeds give other numbers; rows
+    past 2**31 / V and seeds past 2**32 work; counter (0, 0) under seed 0
+    is the first known-answer word.  Exact."""
+    seed = (1 << 61) + 12345
+    rows = torch.arange(6)[:, None]
+    cols = torch.arange(40)[None, :]
+    full = tsm.philox_uniform(seed, rows, cols)
+    assert full.shape == (6, 40) and full.dtype == torch.float32
+    assert torch.equal(tsm.philox_uniform(seed, 4, torch.arange(40)), full[4])
+    assert torch.equal(tsm.philox_uniform(seed, torch.arange(6), 17), full[:, 17])
+    assert torch.equal(tsm.philox_uniform(torch.tensor([seed]), rows, cols), full)
+    assert tsm.philox_uniform(0, 0, 0).item() == (0x6627e8d5 >> 8) * 2.0 ** -24
+    # no two of 240 draws equal; a seed that differs only in its high word,
+    # and a row that differs only in its high word, change every one of them
+    assert full.flatten().unique().numel() == 240
+    assert (tsm.philox_uniform(seed ^ (1 << 40), rows, cols) != full).all()
+    assert (tsm.philox_uniform(seed, rows + (1 << 33), cols) != full).all()
+    gumbel = tsm.philox_gumbel(seed, (2, 3, 40))
+    want = -torch.log(-torch.log(torch.clamp(full, min=1e-20)))
+    assert torch.equal(gumbel.reshape(6, 40), want)
+
+
+def test_philox_uniform_distribution():
+    """u lies in [0, 1) on the 24-bit grid; mean and variance of 10**5
+    draws within 3 sigma of 1/2 and 1/12."""
+    n = 100_000
+    u = tsm.philox_uniform(2024, torch.arange(100)[:, None],
+                           torch.arange(1000)[None, :]).double().flatten()
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    assert torch.equal(u * 2 ** 24, torch.round(u * 2 ** 24))
+    assert abs(float(u.mean()) - 0.5) <= 3 * (1 / 12 / n) ** 0.5
+    # var of the sample variance of a uniform: (1/80 - 1/144) / n
+    assert abs(float(u.var()) - 1 / 12) <= 3 * ((1 / 80 - 1 / 144) / n) ** 0.5
+
+
+def test_draw_seed_follows_the_generator():
+    a = tsm.draw_seed(torch.Generator().manual_seed(3), 'cpu')
+    b = tsm.draw_seed(torch.Generator().manual_seed(3), 'cpu')
+    c = tsm.draw_seed(torch.Generator().manual_seed(4), 'cpu')
+    assert a.dtype == torch.int64 and a.shape == (1,)
+    assert int(a) == int(b) != int(c) and 0 <= int(a) < 2 ** 62
+
+
+# ---------------------------------------------------------------------------
+# K3's algorithm, lane for lane (sample_streamed)
+# ---------------------------------------------------------------------------
+
+def _stream_cases(rng):
+    """The tie cases, at widths that are whole groups of chunks (512 = two
+    groups of 4 x 32 fp32 chunks, 4096), ragged (500), and narrower than
+    one chunk per lane (100)."""
+    cases = [c[:6] for c in _tie_cases(rng)]
+    cases += [c[:6, :500] for c in _tie_cases(rng)[1:]]
+    cases.append((rng.standard_normal((4, 100)) * 3).astype(np.float32))
+    cases.append(rng.integers(0, 3, (3, 4096)).astype(np.float32))
+    cases.append((rng.standard_normal((3, 4096)) * 3).astype(np.float32))
+    return cases
+
+
+@pytest.mark.parametrize('k', [1, 3, 5, 16])
+@pytest.mark.parametrize('vec,misalign', [(8, 0), (4, 0), (8, 3)])
+def test_sample_streamed_keeps_the_topk_mask(k, vec, misalign):
+    """The kernel's selection (per-lane sorted lists, the shared bound, the
+    tournament merge) keeps exactly ``topk_keep_mask``'s entries, and so the
+    JAX mask: equal, on every tie case, for bf16-sized and fp32-sized chunks
+    and for rows that start off the 16-byte grid."""
+    rng = np.random.default_rng(k)
+    for l in _stream_cases(rng):
+        lt = torch.from_numpy(l)
+        keep = tsm.sample_streamed(lt, 1.0, k, torch.zeros_like(lt), vec=vec,
+                                   misalign=misalign)[2].numpy()
+        np.testing.assert_array_equal(keep, tsm.topk_keep_mask(lt, k).numpy())
+        np.testing.assert_array_equal(
+            keep, np.asarray(jsm.topk_keep_mask(jnp.asarray(l), k)))
+        assert (keep.sum(-1) == k).all()
+
+
+@pytest.mark.parametrize('temperature', [1e-10, 0.7, 'per-sample'])
+@pytest.mark.parametrize('k', [1, 5, 7])
+def test_sample_streamed_matches_plain_and_jax_math(temperature, k):
+    """The kernel's algorithm on the kernel's own noise (``philox_gumbel``)
+    against ``gumbel_topk_sample_plain`` and against the JAX kernel's
+    arithmetic on the same noise: pred equal, conf within 1e-6 (the online
+    base-2 log-sum-exp against one exp-sum in fp32)."""
+    rng = np.random.default_rng(11)
+    b, l = 3, 4
+    for logits in _stream_cases(rng):
+        v = logits.shape[-1]
+        logits = np.resize(logits, (b, l, v)).astype(np.float32)
+        noise = tsm.philox_gumbel(int(rng.integers(1 << 62)), (b, l, v))
+        if temperature == 'per-sample':
+            temp = np.asarray([0.5, 1.0, 2.0], np.float32)
+            jtemp = temp[:, None, None]
+        else:
+            temp = jtemp = np.float32(temperature)
+        pred, conf, _ = tsm.sample_streamed(
+            torch.from_numpy(logits), torch.as_tensor(temp), k, noise,
+            misalign=int(rng.integers(8)))
+        assert pred.dtype == torch.int32 and conf.shape == (b, l)
+        plain_pred, plain_conf = tsm.gumbel_topk_sample_plain(
+            torch.from_numpy(logits), torch.as_tensor(temp), k, noise)
+        jax_pred, jax_conf = _jax_sample_math(logits, jtemp, noise.numpy(), k)
+        np.testing.assert_array_equal(pred.numpy(), plain_pred.numpy())
+        np.testing.assert_array_equal(pred.numpy(), jax_pred)
+        assert float((conf - plain_conf).abs().max()) <= 1e-6
+        assert float(np.abs(conf.numpy() - jax_conf).max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K2's selection, thread for thread (nearest_codes_tiled)
+# ---------------------------------------------------------------------------
+
+def _lookup_case(name):
+    rng = np.random.default_rng(len(name))
+    t, c = {'random': (70, 640), 'duplicated rows': (66, 512),
+            'ragged codebook': (130, 1000), 'one token': (1, 384)}[name]
+    z = np.array(jax_l2norm(jnp.asarray(rng.standard_normal((t, 32)),
+                                        jnp.float32)))
+    e = np.array(jax_l2norm(jnp.asarray(rng.standard_normal((c, 32)),
+                                        jnp.float32)))
+    if name == 'duplicated rows':  # exact ties, four copies of each code
+        e = np.tile(e[:c // 4], (4, 1))
+    return z, e
+
+
+@pytest.mark.parametrize('name', ['random', 'duplicated rows',
+                                  'ragged codebook', 'one token'])
+def test_nearest_codes_tiled_matches_plain_and_jax_kernel(interpret_mode, name):
+    """The kernel's tiling, per-thread fold, merges and codebook splits give
+    ``nearest_codes_plain``'s indices and the Pallas kernel's (interpret
+    mode), exactly, for every number of splits: on duplicated codebook rows
+    the lowest index wins through every merge and every split."""
+    z, e = _lookup_case(name)
+    zt, et = torch.from_numpy(z), torch.from_numpy(e)
+    ref = tvq.nearest_codes_plain(zt, et)
+    pallas = np.asarray(jvq.fused_nearest_codes(jnp.asarray(z), jnp.asarray(e)))
+    np.testing.assert_array_equal(ref.numpy(), pallas)
+    if name == 'duplicated rows':
+        assert int(ref.max()) < e.shape[0] // 4
+    tiles = -(-e.shape[0] // tvq.TILE_CODES)
+    for splits in range(1, tiles + 1):
+        got = tvq.nearest_codes_tiled(zt, et, splits)
+        assert got.dtype == torch.int32 and got.shape == ref.shape
+        np.testing.assert_array_equal(got.numpy(), ref.numpy(), err_msg=str(splits))
+    with pytest.raises(ValueError):
+        tvq.nearest_codes_tiled(zt, et, tiles + 1)
+
+
+def test_lookup_key_orders_as_score_then_lower_index():
+    """The 64-bit key of the split merge: its score bits are monotone over
+    negative, zero and positive floats (-0 and +0 equal), and among equal
+    scores the lower index has the greater key."""
+    scores = np.array([-np.inf, -3.5, -1.0, -1e-38, -1e-45, -0.0, 0.0, 1e-45,
+                       1e-38, 0.5, 1.0, 1.0000001, 7.0, np.inf], np.float32)
+    bits = tvq.ordered_bits(scores).astype(np.int64)
+    assert bits[5] == bits[6]
+    assert (np.diff(np.delete(bits, 5)) > 0).all()
+    keys = tvq.pack_key(scores[:, None], np.arange(4)[None, :])
+    assert keys.dtype == np.uint64 and (keys > 0).all()
+    assert (np.diff(keys.astype(object), axis=1) < 0).all()  # index up, key down
+    order = np.argsort(keys.astype(object).flatten())[::-1]
+    assert order[0] == 13 * 4 + 0  # +inf at index 0
+    assert {int(order[-1]), int(order[-2])} <= set(range(4))  # -inf last
+
+
+@pytest.mark.parametrize('t,c,want', [(8192, 8192, 2), (1024, 8192, 16),
+                                      (1, 8192, 64), (1, 100, 1),
+                                      (100_000, 8192, 1)])
+def test_codebook_splits_fill_the_card(t, c, want):
+    """About two blocks per SM (132 on an H100), never more splits than
+    codebook tiles, one when the token tiles alone fill the card."""
+    assert tvq.codebook_splits(t, c, 132) == want
