@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``paintmind_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py K3 K2      # build and check these kernels only, then
+    python3 chip_smoke.py K3 K3r     # build and check these kernels only, then
                                      # stop (a short first run after a kernel
                                      # edit; prints no result line)
 
@@ -24,22 +24,34 @@ exits non-zero with no result line:
      weights, bf16) runs a 16-step ``generate`` at B = 8, the same with
      classifier-free guidance, and an ``inpaint``; the launch counters must
      show each kernel on that path, at the expected counts;
-  6. stage-2 training at the same width (fp32 master weights, bf16
+  6. serving: ``make_server`` over a ``GenerationEngine`` over a
+     full-width bf16 ``paintmindv1`` with a full-width flan-t5-large text
+     tower (seeded random weights): one concurrent HTTP burst of prompted
+     /generate (top-k 5 and 32, with and without guidance), /reconstruct,
+     /inpaint and /outpaint requests and one malformed request; launches
+     checked against the batches the engine ran; requests/s and latency;
+     a seeded batch twice, bit-equal; the engine against a direct
+     ``generate``; /variations through a ViT-L/14 image tower;
+  7. stage-2 training at the same width (fp32 master weights, bf16
      compute): one microbatch of B = 8 through ``pipeline_loss`` and
      ``backward()`` with the kernels and with the plain attention, loss and
      gradients compared; its launch counts without and with remat; six
      updates of the step function (Lion, dropout on, two microbatches
      each), timed; a short ``PaintMindTrainer.train()`` with ``save()``,
      ``resume('auto')`` into a second trainer and one ``evaluate()``;
-  7. a ``torch.profiler`` window over one unguided ``generate`` and one over
+  8. a ``torch.profiler`` window over one unguided ``generate`` and one over
      one training microbatch: the ten device operations with the most time,
      and the device's busy share of each window (report only);
-  8. one ``{"kernels": [...]}`` line, then the last line
+  9. one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero when there is none.
 """
 
+import base64
+import gc
+import hashlib
+import io
 import json
 import math
 import os
@@ -47,7 +59,10 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -63,6 +78,8 @@ from paintmind_tpu_torch.ops import _build
 from paintmind_tpu_torch.ops import flash_attention as fa
 from paintmind_tpu_torch.ops import sampling as sm
 from paintmind_tpu_torch.ops import vq_lookup as vq
+from paintmind_tpu_torch.serving import (GenerateRequest, GenerationEngine,
+                                         make_server)
 from paintmind_tpu_torch.train.steps import make_pipeline_train_step
 from paintmind_tpu_torch.utils.checkpoint import load_flat
 
@@ -77,7 +94,8 @@ CARD = ''  # name and power limit as nvidia-smi gives them; set in main()
 
 # kernel -> (module, name of its launch counter there)
 KERNEL_COUNTERS = {'K1': (fa, 'launches'), 'K2': (vq, 'launches'),
-                   'K3': (sm, 'launches'), 'K4': (fa, 'launches_bwd')}
+                   'K3': (sm, 'launches'), 'K3r': (sm, 'launches_radix'),
+                   'K4': (fa, 'launches_bwd')}
 
 
 def log(*parts):
@@ -535,6 +553,73 @@ def check_k3(g):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def check_k3_radix(g):
+    """K3's k > 16 kernel (one block a row, radix select) against the plain
+    version sample for sample on its own Philox noise (``k3_against_plain``)
+    for k = 17, 32, 100 and V: ragged rows (T = 37, V = 500, also one
+    element off the 16-byte grid), mass ties (integer logits) and rows of
+    +0 / -0, fp32 and bf16, temperature 1e-10 (no near-tie allowed) and 1; a
+    row of 20000 classes (keys in more than 48 KB of shared memory) and one
+    of 60000 (too long for shared memory: every pass reads the row again);
+    the main path's shape (8·1024, 8192) at k = 32 at temperature 1 and per
+    sample.  One seed twice: the same bits.  Times bf16 8192 x 8192 at
+    k = 32 beside its bound (one read of the logits, as for K3) and the
+    plain version."""
+    near, small, plain_err = 0, 0, 0.0
+    ties = torch.randint(0, 4, (37, 500), device='cuda', generator=g).float()
+    ragged = torch.randn(37, 500, device='cuda', generator=g) * 3
+    zeros = torch.where(torch.rand(37, 500, device='cuda', generator=g) < 0.5,
+                        0.0, -0.0)
+    for name, lg in (('mass ties', ties), ('ragged', ragged), ('+-0', zeros)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kk in (17, 32, 100, 500):
+                for temp in (1e-10, 1.0):
+                    off = torch.empty(lg.numel() + 1, device='cuda', dtype=dtype)
+                    for view in (lg.to(dtype), off[1:].view_as(lg).copy_(lg)):
+                        n, err = k3_against_plain(
+                            view, temp, kk, g, f'{name} {dtype} k={kk} temp {temp}',
+                            near_tie=1e-5 if temp == 1.0 else 0.0)
+                        small, plain_err = small + n, max(plain_err, err)
+    for t, v, kk in ((16, 20000, 64), (4, 60000, 17), (4, 60000, 1000)):
+        lg = torch.randn(t, v, device='cuda', generator=g) * 3
+        n, err = k3_against_plain(lg, 1.0, kk, g, f'T={t} V={v} k={kk}')
+        small, plain_err = small + n, max(plain_err, err)
+    t, v, k = 8 * 1024, 8192, 32
+    wide = torch.randn(8, 1024, v, device='cuda', generator=g) * 3
+    per_sample = torch.linspace(0.3, 2.0, 8, device='cuda')
+    for dtype in (torch.bfloat16, torch.float32):
+        lg = wide.to(dtype)
+        for temp in (1.0, per_sample):
+            n, err = k3_against_plain(lg, temp, k, g, f'{dtype} k={k} temp {temp}')
+            near, plain_err = near + n, max(plain_err, err)
+    lb = wide.reshape(t, v).to(torch.bfloat16)
+    del wide, lg
+    state = g.get_state()
+    first = sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g)
+    g.set_state(state)
+    second = sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g)
+    check(torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]),
+          'K3r: one seed, two launches, different bits')
+    keep = sm.topk_keep_mask(lb.float(), k)
+    check(bool(keep.gather(1, first[0].long()[:, None]).all()),
+          f'K3r sampled outside the top-{k}')
+    del keep
+    noise = sm.gumbel_noise(lb.shape, generator=g, device='cuda')
+    ms = time_ms(lambda: sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g), 50)
+    plain_ms = time_ms(lambda: sm.gumbel_topk_sample_plain(lb, 1.0, k, noise), 2)
+    del noise
+    bms, by = bound(t * v * 2 + 8 + t * (4 + 4), t * v * K3_OPS_PER_LOGIT,
+                    torch.float32)
+    log(f'K3r (k > 16) T={t} V={v} k={k}: against the plain version on the '
+        f"kernel's own noise: {near} of {4 * t} rows differ at near-ties "
+        f'(< 1e-5), {small} of the small ragged / mass-tie / +-0 / long rows, '
+        f'conf err {plain_err:.3e}; bf16 ms={ms:.4f} = '
+        f'{t * v * 2 / ms / 1e6:.0f} GB/s plain_ms={plain_ms:.4f} (noise '
+        f'given) bound_ms={bms:.4f} ({by}); {CARD}')
+    return dict(max_abs_err=plain_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path
 # ---------------------------------------------------------------------------
@@ -549,7 +634,9 @@ def seeded_images(b, size, seed):
 
 
 def drive(fn, expected, totals, what):
-    """Run one main-path call with the counters at 0; check and add them."""
+    """Run one main-path call with the counters at 0; check and add them
+    (a kernel that ``expected`` does not name must not launch)."""
+    expected = {name: expected.get(name, 0) for name in KERNEL_COUNTERS}
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -657,7 +744,312 @@ def stage2(totals):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: stage-2 training
+# phase 6: the serving path (engine, HTTP server, T5 and CLIP towers)
+# ---------------------------------------------------------------------------
+
+def hash_tokenizer(texts, truncation=True, max_length=77,
+                   padding='max_length', return_tensors='np'):
+    """A deterministic stand-in for the flan-t5 tokenizer (no vocabulary is
+    in the repository): each word hashed to an id below 32000, then the
+    end-of-text id 1, padded with 0 to ``max_length``."""
+    ids = np.zeros((len(texts), max_length), np.int64)
+    for i, text in enumerate(texts):
+        words = [2 + int.from_bytes(hashlib.blake2s(
+            w.encode(), digest_size=4).digest(), 'little') % 31998
+            for w in text.lower().split()]
+        words = (words + [1])[:max_length]
+        ids[i, :len(words)] = words
+    return {'input_ids': ids}
+
+
+def record_batches(pipe, calls):
+    """Wrap the entry points the engine calls once per batch, so that each
+    batch is recorded as (kind, steps, top-k, guided, batch size, start,
+    end): host clock, the end after a synchronise (the engine synchronises
+    there anyway, moving the images to the host)."""
+    generate, paint, reconstruct = pipe.generate, pipe.paint, pipe.vqgan.reconstruct
+
+    def guided(kw):
+        return kw.get('guidance_scale') is not None and kw.get('text') is not None
+
+    def timed(what, run, size):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        calls.append(what + (size, t0, time.perf_counter()))
+        return out
+
+    def gen(**kw):
+        size = kw['num_samples'] if kw.get('text') is None else len(kw['text'])
+        return timed(('generate', kw['timesteps'], kw['topk'], guided(kw)),
+                     lambda: generate(**kw), size)
+
+    def pnt(img, keep, **kw):
+        return timed(('paint', kw['timesteps'], kw['topk'], guided(kw)),
+                     lambda: paint(img, keep, **kw), len(img))
+
+    def rec(img):
+        return timed(('reconstruct', 0, 0, False), lambda: reconstruct(img),
+                     len(img))
+
+    pipe.generate, pipe.paint, pipe.vqgan.reconstruct = gen, pnt, rec
+
+
+def expected_launches(calls, cfg):
+    """Kernel launches of the recorded batches: per sampler step K3 once
+    (K3r for top-k > 16) and K1 once per attention of each of the depth
+    layers (self + cross, and the unconditional half's self-attending cross
+    layer with guidance), the decoder's K1 per batch; an encode (paint,
+    reconstruct) adds the encoder's K1 and one K2."""
+    depth, enc, dec = cfg.depth, cfg.vqc.enc.depth, cfg.vqc.dec.depth
+    want = dict.fromkeys(KERNEL_COUNTERS, 0)
+    for kind, steps, topk, guided, *_ in calls:
+        want['K1'] += dec
+        if kind in ('paint', 'reconstruct'):
+            want['K1'] += enc
+            want['K2'] += 1
+        if kind != 'reconstruct':
+            want['K3' if topk <= sm.MAX_K else 'K3r'] += steps
+            want['K1'] += depth * (3 if guided else 2) * steps
+    return want
+
+
+def post(port, path, body):
+    """One JSON request to the local server (no proxy); (status, reply,
+    seconds)."""
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    req = urllib.request.Request(f'http://127.0.0.1:{port}{path}',
+                                 data=json.dumps(body).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    t0 = time.perf_counter()
+    try:
+        with opener.open(req, timeout=600) as resp:
+            status, out = resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        status, out = e.code, json.loads(e.read())
+    return status, out, time.perf_counter() - t0
+
+
+def png_size(b64):
+    with Image.open(io.BytesIO(base64.b64decode(b64))) as im:
+        return im.size
+
+
+def png_b64(img):
+    arr = ((img.float().cpu().numpy() + 1) * 127.5).clip(0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format='PNG')
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+class Served:
+    """An engine behind ``make_server`` on an ephemeral port, served from a
+    thread; closed (server, then engine) on exit."""
+
+    def __init__(self, pipe, **kw):
+        self.engine = GenerationEngine(pipe, **kw)
+        self.httpd = make_server(self.engine, '127.0.0.1', 0)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(60)
+        self.engine.close(timeout=600)
+
+
+def serving_phase(totals):
+    """``make_server`` over a ``GenerationEngine`` (max_batch 8) over a
+    full-width bf16 ``paintmindv1`` pipeline (seeded random stage 2, the
+    shipped stage 1) with a full-width flan-t5-large ``T5TextEncoder``
+    (24 layers, d_model 1024, seeded random weights, fp32) and the stand-in
+    tokenizer.  One concurrent burst over HTTP: 16 prompted /generate (16
+    steps, top-k 5, half seeded), 8 with mixed guidance, 2 with top-k 32
+    (K3r), 4 /reconstruct, 2 /inpaint + 2 /outpaint with different rects,
+    one malformed coord.  Gates: 400 for the malformed one, 200 and a 256²
+    PNG for every other; errors 0; batches coalesce (mean occupancy > 1);
+    the launches equal those of the batches the engine ran (K3 + K3r = the
+    sum of the sampler steps; K2 one per reconstruct and paint batch; no
+    K4).  Eight identical seeded requests, twice as one batch: bit-equal
+    images.  Then /variations (``paintmindv1-imgvar``, full-width ViT-L/14
+    ``CLIPImageEmbedder``, num 4) and the text pipeline's 400 there."""
+    from paintmind_tpu_torch.models import clip as tclip
+    from paintmind_tpu_torch.models import t5 as tt5
+    t5 = tt5.T5TextEncoder(
+        model=tt5.T5Encoder(tt5.T5Config.flan_t5_large(), device='cuda', seed=11),
+        tokenizer=hash_tokenizer, device='cuda')
+    pipe = pt.create_model('pipeline', 'paintmindv1', pretrained=False,
+                           stage1_checkpoint_path=ASSET, text_encoder=t5,
+                           compute_dtype=torch.bfloat16)
+    cfg = pipe.config
+    n_t5 = sum(p.numel() for p in t5.model.parameters())
+    log(f'serving: paintmindv1 bf16 + flan-t5-large encoder ({n_t5 / 1e6:.1f} M '
+        f'parameters, fp32, seeded random), max_batch 8')
+    g = torch.Generator(device='cuda').manual_seed(5)
+    imgs = seeded_images(8, 256, 9)
+    calls = []
+    record_batches(pipe, calls)
+    with Served(pipe, max_batch=8, max_wait_ms=100) as srv:
+        port, eng = srv.port, srv.engine
+        # warm-up: cuBLAS handles, the allocator, the tower's first call
+        status, _, _ = post(port, '/generate', {'prompt': 'warm up',
+                                                'timesteps': 2, 'topk': 5})
+        check(status == 200, f'warm-up /generate: {status}')
+        eng.reset_stats()
+        calls.clear()
+
+        jobs = []
+        for i in range(16):
+            body = {'prompt': f'a painting of a red fox number {i}',
+                    'timesteps': 16, 'topk': 5}
+            if i % 2 == 0:
+                body['seed'] = 100 + i
+            jobs.append(('/generate', body))
+        for i in range(8):
+            jobs.append(('/generate', {'prompt': f'a guided lighthouse {i}',
+                                       'timesteps': 16, 'topk': 5,
+                                       'guidance_scale': 1.5 + 0.5 * i,
+                                       'seed': 200 + i}))
+        for i in range(2):
+            jobs.append(('/generate', {'prompt': f'a wide sample {i}',
+                                       'timesteps': 16, 'topk': 32}))
+        for i in range(4):
+            jobs.append(('/reconstruct', {'image': png_b64(imgs[i])}))
+        for i, (path, rect) in enumerate((
+                ('/inpaint', [64, 64, 128, 128]), ('/inpaint', [0, 0, 96, 160]),
+                ('/outpaint', [32, 32, 192, 192]), ('/outpaint', [96, 0, 128, 64]))):
+            jobs.append((path, {'image': png_b64(imgs[4 + i]), 'coord': rect,
+                                'prompt': f'a paint prompt {i}',
+                                'timesteps': 8, 'seed': 300 + i}))
+        jobs.append(('/inpaint', {'image': png_b64(imgs[0]),
+                                  'coord': [0, 0, 999, 999]}))
+        reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            replies = list(pool.map(lambda job: post(port, *job), jobs))
+        burst_s = time.perf_counter() - t0
+        counts = read_counts()
+        stats = eng.stats()
+        want = expected_launches(calls, cfg)
+        for (path, body), (status, out, _) in zip(jobs, replies):
+            if body.get('coord') == [0, 0, 999, 999]:
+                check(status == 400 and 'outside' in out['error'],
+                      f'malformed coord: {status} {out}')
+            else:
+                check(status == 200 and png_size(out['image']) == (256, 256),
+                      f'{path}: {status} {str(out)[:200]}')
+        check(stats['errors'] == 0, f'engine errors: {stats}')
+        check(stats['mean_batch_occupancy'] > 1, f'no coalescing: {stats}')
+        check(counts == want, f'serving burst: launches {counts}, the '
+              f'{len(calls)} batches {calls} need {want}')
+        check(counts['K4'] == 0 and counts['K3r'] > 0, f'launches {counts}')
+        for name, n in counts.items():
+            totals[name] += n
+        gen_lat = sorted(r[2] for (path, _), r in zip(jobs, replies)
+                         if path == '/generate')
+        log(f'serving burst: {len(jobs)} requests ({len(gen_lat)} /generate) in '
+            f'{burst_s:.3f} s = {len(gen_lat) / burst_s:.3f} /generate requests/s '
+            f'({len(jobs) / burst_s:.3f} requests/s of all kinds); engine '
+            f'latency_p50_s={stats["latency_p50_s"]:.3f} '
+            f'latency_p95_s={stats["latency_p95_s"]:.3f} (queue + batch); '
+            f'client /generate p50 {gen_lat[len(gen_lat) // 2]:.3f} s, max '
+            f'{gen_lat[-1]:.3f} s (HTTP and T5 included); {stats["batches"]} '
+            f'batches, mean occupancy {stats["mean_batch_occupancy"]:.2f}, '
+            f'padded slots {stats["padded_slots"]}; launches {counts}; {CARD}')
+        busy = sum(c[6] - c[5] for c in calls)
+        log(f'serving batches (kind steps/top-k, g = guided, B = bucket, start '
+            f'and end after the burst began, s): '
+            + '; '.join(f'{c[0][0]}{c[1]}/{c[2]}{"g" if c[3] else ""} B={c[4]} '
+                        f'{c[5] - t0:.3f}-{c[6] - t0:.3f}' for c in calls)
+            + f'; the dispatch thread ran batches {busy:.3f} s of the '
+            f'{burst_s:.3f} s burst')
+        t5_ms = median_ms(lambda: t5(['a single prompt to time']), 5)
+        log(f'serving: T5 encode of one prompt (fp32, 24 layers, 77 tokens): '
+            f'{t5_ms:.3f} ms (CUDA events, median of 5); {CARD}')
+
+        # eight identical seeded requests, twice as one batch: bit-equal
+        ctx = pipe.embed_text(['one seeded prompt'])[0]
+        rounds, batch_s = [], []
+        calls.clear()
+        reset_counts()
+        for _ in range(2):
+            before = eng.stats()['batches']
+            t0 = time.perf_counter()
+            futs = [eng.submit(GenerateRequest(context=ctx, timesteps=16,
+                                               topk=5, seed=1234))
+                    for _ in range(8)]
+            rounds.append([f.result(timeout=600) for f in futs])
+            batch_s.append(time.perf_counter() - t0)
+            check(eng.stats()['batches'] == before + 1,
+                  'the eight seeded requests did not run as one batch')
+        check(all(np.array_equal(a, b) for a, b in zip(*rounds)),
+              'one seeded batch, twice: different images')
+        check(len({r.tobytes() for r in rounds[0]}) == 8,
+              'the rows of one batch drew the same noise')
+        counts = read_counts()
+        check(len(calls) == 2 and counts == expected_launches(calls, cfg),
+              f'seeded batches: launches {counts} for batches {calls}')
+        for name, n in counts.items():
+            totals[name] += n
+        ctx8 = pipe.embed_text([f'a direct prompt {i}' for i in range(8)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = pipe.generate(text=ctx8, timesteps=16, topk=5,
+                               decode_steps='final', generator=g)[-1]
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        check_images(direct, 'direct generate')
+        log(f'serving: eight seeded requests as one batch, twice: bit-equal; '
+            f'engine {min(batch_s):.3f} s per batch of 8 = '
+            f'{8 / min(batch_s):.3f} images/s, Pipeline.generate directly '
+            f'{direct_s:.3f} s = {8 / direct_s:.3f} images/s (B=8, 16 steps, '
+            f'top-k 5): engine overhead {min(batch_s) - direct_s:+.3f} s; {CARD}')
+
+    # /variations: an image-conditioned pipeline with a ViT-L/14 image tower
+    tower = tclip.CLIPImageEmbedder(cfg=tclip.CLIPVisionConfig(),
+                                    dtype=torch.bfloat16, seed=13)
+    imgvar = pt.create_model('pipeline', 'paintmindv1-imgvar', pretrained=False,
+                             stage1_checkpoint_path=ASSET, text_encoder=tower,
+                             compute_dtype=torch.bfloat16)
+    var_calls = []
+    record_batches(imgvar, var_calls)
+    with Served(imgvar, max_batch=8, max_wait_ms=100) as srv:
+        reset_counts()
+        status, out, seconds = post(srv.port, '/variations', {
+            'image': png_b64(imgs[1]), 'num': 4, 'timesteps': 16, 'topk': 5,
+            'seed': 7})
+        counts = read_counts()
+        check(status == 200 and len(out['images']) == 4
+              and all(png_size(b) == (256, 256) for b in out['images']),
+              f'/variations: {status} {str(out)[:200]}')
+        check(len(set(out['images'])) == 4, '/variations: identical images')
+        check(srv.engine.stats()['errors'] == 0, 'variations engine errors')
+        check(counts == expected_launches(var_calls, imgvar.config),
+              f'/variations: launches {counts} for batches {var_calls}')
+        for name, n in counts.items():
+            totals[name] += n
+    with Served(pipe, max_batch=8, max_wait_ms=10) as srv:
+        status, out, _ = post(srv.port, '/variations',
+                              {'image': png_b64(imgs[1])})
+        check(status == 400 and 'tower' in out['error'],
+              f'/variations on the text pipeline: {status} {out}')
+    clip_ms = median_ms(lambda: tower(imgs[:1].float()), 5)
+    log(f'serving /variations (ViT-L/14 image tower, bf16, seeded random): 4 '
+        f'images in {seconds:.3f} s, {len(var_calls)} batch(es), launches '
+        f'{counts}; the text pipeline answers 400; the image tower on one '
+        f'256² image {clip_ms:.3f} ms (CUDA events, median of 5); {CARD}')
+    for p in (pipe, imgvar):  # the recording wrappers hold the pipelines
+        del p.generate, p.paint, p.vqgan.reconstruct
+
+
+# ---------------------------------------------------------------------------
+# phase 7: stage-2 training
 # ---------------------------------------------------------------------------
 
 class SeededDataset:
@@ -874,7 +1266,7 @@ def short_name(entry):
     name, args = found.groups()
     if args:
         args = re.sub(r'^f', 'fp32,', args.replace('13__nv_bfloat16', 'bf16,'))
-        name += '<' + re.sub(r'Li(\d+)E?', r'\1,', args).rstrip(',') + '>'
+        name += '<' + re.sub(r'L[ib](\d+)E?', r'\1,', args).rstrip(',') + '>'
     return name
 
 
@@ -882,6 +1274,12 @@ def read_sass(name):
     return subprocess.run(
         [_build.cuda_tool('cuobjdump'), '-sass', str(_build.library_path(name))],
         capture_output=True, text=True, check=True).stdout
+
+
+def sass_of(sass, entry):
+    """The part of a ``cuobjdump -sass`` listing that is ``entry``'s code."""
+    parts = sass.split('Function : ')
+    return next((p for p in parts if p.startswith(entry)), '')
 
 
 def report_build(name, seconds, sass):
@@ -908,18 +1306,25 @@ def report_build(name, seconds, sass):
         else:
             for op in counts.get(entry, ()):
                 counts[entry][op] += f' {op}' in ln
+    faults = []
     for entry, lines in usage.items():
         check(entry in counts, f'{entry} is not in the compiled library')
         ops = counts[entry]
         log(f'  {short_name(entry)}: {"; ".join(lines)}; SASS '
             + ' '.join(f'{op}={n}' for op, n in ops.items()))
-        check(any('0 bytes spill stores, 0 bytes spill loads' in ln
-                  for ln in lines), f'{entry} spills registers')
-        if any(k in entry for k in TENSOR_CORE_KERNELS.get(name, ())):
-            check(ops['HGMMA'] + ops['HMMA'] > 0,
-                  f'{entry} does not use the tensor cores')
-        if short_name(entry).startswith('vq_lookup'):
-            check(ops['LDGSTS'] > 0, f'{entry} does not copy with cp.async')
+        if not any('0 bytes spill stores, 0 bytes spill loads' in ln
+                   for ln in lines):
+            faults.append(f'{entry} spills registers')
+            local = [ln.strip() for ln in sass_of(sass, entry).splitlines()
+                     if re.search(r' (STL|LDL|CALL)', ln)]
+            log('    local-memory and call instructions:\n      '
+                + '\n      '.join(local[:12]))
+        if any(k in entry for k in TENSOR_CORE_KERNELS.get(name, ())) \
+                and ops['HGMMA'] + ops['HMMA'] == 0:
+            faults.append(f'{entry} does not use the tensor cores')
+        if short_name(entry).startswith('vq_lookup') and ops['LDGSTS'] == 0:
+            faults.append(f'{entry} does not copy with cp.async')
+    check(not faults, '; '.join(faults))
     for kernel in TENSOR_CORE_KERNELS.get(name, ()):
         check(any(kernel in entry for entry in usage),
               f'{kernel} was not compiled')
@@ -977,6 +1382,7 @@ def profiles(serving, trained):
 # the libraries each kernel's check needs
 KERNEL_LIBRARIES = {'K1': ('flash_attention',),
                     'K2': ('vq_lookup',), 'K3': ('sampling',),
+                    'K3r': ('sampling',),
                     'K4': ('flash_attention', 'flash_attention_bwd')}
 
 
@@ -997,7 +1403,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    checks = {'K1': check_k1, 'K2': check_k2, 'K3': check_k3, 'K4': check_k4}
+    checks = {'K1': check_k1, 'K2': check_k2, 'K3': check_k3,
+              'K3r': check_k3_radix, 'K4': check_k4}
     only = sys.argv[1:]
     if any(name not in checks for name in only):
         sys.exit(f'usage: chip_smoke.py [{" ".join(checks)}]')
@@ -1023,6 +1430,9 @@ def main():
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
+        # what a phase left in reference cycles (an HTTP server's handler
+        # class holds its engine and pipeline) must not stay on the card
+        gc.collect()
         torch.cuda.empty_cache()
         log(f'phase {what}: {time.perf_counter() - t0:.1f} s')
         return out
@@ -1031,7 +1441,16 @@ def main():
     totals = {name: 0 for name in KERNEL_COUNTERS}
     phase('stage 1', stage1, totals)
     serving = phase('stage 2', stage2, totals)
-    serving.to('cpu')  # out of the training phase's peak memory
+    serving.to('cpu')  # out of the later phases' peak memory
+    before = torch.cuda.memory_allocated()
+    phase('serving', serving_phase, totals)
+    held = torch.cuda.memory_allocated() - before
+    # each thread that ran a product has its own cuBLAS handle and workspace,
+    # kept by PyTorch until cleared: here the handler threads' tower encodes
+    torch._C._cuda_clearCublasWorkspaces()
+    log(f'serving: device memory still allocated after the phase '
+        f'{held / 2**30:.3f} GiB, after clearing the cuBLAS workspaces '
+        f'{(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB')
     trained = phase('training', training, totals)
     for name, n in totals.items():
         check(n > 0, f'{name} never launched on the main path')
@@ -1046,6 +1465,9 @@ def main():
         'K3': ('fused_gumbel_topk_sample', 'cuda',
                'paintmind_tpu_torch/csrc/sampling.cu',
                'paintmind_tpu/ops/sampling.py:136'),
+        'K3r': ('fused_gumbel_topk_sample (k > 16, radix select)', 'cuda',
+                'paintmind_tpu_torch/csrc/sampling.cu',
+                'paintmind_tpu/ops/sampling.py:136'),
         'K4': ('flash_attention_bwd', 'cuda',
                'paintmind_tpu_torch/csrc/flash_attention_bwd.cu',
                'paintmind_tpu/ops/flash_attention.py:195'),

@@ -15,6 +15,18 @@ tree (the tests pass that in).  Three layout differences are bridged:
 Every other leaf (``pos_embed``, ``codebook``, ``mask_token``) keeps its
 name and shape.  Loading is strict: a key the module lacks, or a parameter
 the tree lacks, raises.
+
+The conditioning towers' trees (``paintmind_tpu/models/t5.py``, ``clip.py``)
+have a layout of their own, bridged by ``load_tower_params`` /
+``tower_to_flat``:
+
+  * T5: linear kernels are bare (in, out) leaves (``blocks/q``), norms and
+    embeddings bare vectors and tables (``blocks/ln0``, ``embed``,
+    ``rel_bias``), and every leaf under ``blocks`` is depth-stacked;
+  * CLIP: ``resblocks`` is a list (``resblocks/<i>/...``, not stacked); a
+    linear layer with a bias is two leaves ``<name>_w`` (in, out) and
+    ``<name>_b``, one without (``conv1``) a bare kernel; LayerNorms are
+    ``<name>/scale`` and ``<name>/bias``.
 """
 
 from __future__ import annotations
@@ -25,6 +37,8 @@ import torch
 from torch import nn
 
 from ..utils.checkpoint import SEP, to_numpy, to_tensor
+
+TOWER_STACK = 'blocks'  # the tower node whose leaves are depth-stacked (T5)
 
 
 def to_state_dict(flat):
@@ -92,6 +106,75 @@ def to_flat(module):
                 stacks.setdefault(f'{m[1]}/{m[3]}', {})[int(m[2])] = value
             else:
                 leaves[key] = value
+    for key, by_layer in stacks.items():
+        leaves[key] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+    return dict(to_numpy(k, v) for k, v in leaves.items())
+
+
+def _tower_leaves(module):
+    """(parameter name, tree key, layer index or None, transposed?) for every
+    parameter of a T5 or CLIP tower module."""
+    for prefix, mod in module.named_modules():
+        path = [p for p in prefix.split('.') if p]
+        index = None
+        if path[:1] == [TOWER_STACK] and len(path) > 1:
+            index, path = int(path[1]), path[:1] + path[2:]
+        for name, _ in mod.named_parameters(recurse=False):
+            full = f'{prefix}.{name}' if prefix else name
+            key, transpose = SEP.join(path), False
+            if isinstance(mod, nn.LayerNorm):
+                key += SEP + ('scale' if name == 'weight' else 'bias')
+            elif isinstance(mod, nn.Linear):
+                transpose = name == 'weight'
+                if mod.bias is not None:
+                    key += '_w' if name == 'weight' else '_b'
+            elif not isinstance(mod, nn.Embedding) and name != 'weight':
+                key = SEP.join(path + [name])  # a bare parameter of the module
+            yield full, key, index, transpose
+
+
+@torch.no_grad()
+def load_tower_params(module, flat):
+    """Copy a flat T5 or CLIP tree of the JAX package into a tower module
+    (in place, keeping its device and dtypes).  Strict, as
+    ``load_jax_params``."""
+    flat = dict(to_tensor(k, v) for k, v in flat.items())
+    params = dict(module.named_parameters())
+    used = set()
+    for name, key, index, transpose in _tower_leaves(module):
+        if key not in flat:
+            raise KeyError(f'parameter tree does not match '
+                           f'{type(module).__name__}: missing {key!r}')
+        used.add(key)
+        value = flat[key] if index is None else flat[key][index]
+        if transpose:
+            value = value.t()
+        if params[name].shape != value.shape:
+            raise ValueError(f'shape mismatch for {key!r}: tree '
+                             f'{tuple(value.shape)} vs module '
+                             f'{tuple(params[name].shape)}')
+        params[name].copy_(value)
+    unexpected = sorted(set(flat) - used)
+    if unexpected:
+        raise KeyError(f'parameter tree does not match {type(module).__name__}:'
+                       f' unexpected {unexpected[:8]}')
+    return module
+
+
+@torch.no_grad()
+def tower_to_flat(module):
+    """The reverse: a tower module's parameters as the JAX package's flat
+    ``{key: numpy array}`` tree, ready for ``utils.checkpoint.save_params``."""
+    params = dict(module.named_parameters())
+    leaves, stacks = {}, {}
+    for name, key, index, transpose in _tower_leaves(module):
+        value = params[name].detach().cpu()
+        if transpose:
+            value = value.t()
+        if index is None:
+            leaves[key] = value
+        else:
+            stacks.setdefault(key, {})[index] = value
     for key, by_layer in stacks.items():
         leaves[key] = torch.stack([by_layer[i] for i in range(len(by_layer))])
     return dict(to_numpy(k, v) for k, v in leaves.items())

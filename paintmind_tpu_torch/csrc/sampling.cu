@@ -45,7 +45,29 @@
 //
 // The list length is a template constant: 1, 5 or 16.  A k between two of
 // them runs the next longer list and merges only k rounds (the merge yields
-// the entries in order, so its first k are the top k).  k > 16 is refused.
+// the entries in order, so its first k are the top k).
+//
+// k > 16 (any k up to V) goes to a second kernel, sample_rows_radix, below:
+// per-lane lists that long would not fit in registers.  It gives a row to a
+// block of 256 threads and computes the same function, the same survivors and
+// the same noise, bit for bit:
+//
+//   * one read of the row (16-byte streaming loads, scalar head and tail as
+//     above) turns each value into an order-preserving 32-bit key (a larger
+//     float is a larger key; -0 and +0 share one) kept in shared memory when
+//     the row fits (8192 keys are 32 KB; else in the block's row of a
+//     scratch buffer the wrapper allocates), and feeds an online log-sum-exp;
+//   * a radix select over those keys, four passes of 8 bits, finds the k-th
+//     largest key T and how many of the k lie strictly above it.  A pass is a
+//     256-bin histogram of the next digit over the keys that match the
+//     prefix so far (warp-aggregated shared-memory atomics: the lanes with one
+//     digit add their count once) and a block suffix scan of the bins;
+//   * the keys equal to T are admitted lowest column first: each warp owns a
+//     contiguous run of columns, counts its equal keys by ballot, and a warp
+//     admits the first k - greater of them after the runs before it;
+//   * the k survivors draw Philox noise at the same counter under the same
+//     seed, and a block reduction takes the argmax of value / temp + g, the
+//     lower column on a tie.
 //
 // Layout: logits (rows, V) bf16 or fp32, contiguous; pred (rows,) int32; conf
 // (rows,) fp32; seed one 64-bit word in device memory; the temperature either
@@ -99,13 +121,16 @@ struct Elem<float> {
 template <>
 struct Elem<__nv_bfloat16> {
   static constexpr int VEC = 8;
+  // written out: a local array of the four words can land in local memory
   static __device__ __forceinline__ void widen(const uint4& r, float (&x)[VEC]) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = __uint_as_float(w[i] << 16);
-      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
+    x[0] = __uint_as_float(r.x << 16);
+    x[1] = __uint_as_float(r.x & 0xffff0000u);
+    x[2] = __uint_as_float(r.y << 16);
+    x[3] = __uint_as_float(r.y & 0xffff0000u);
+    x[4] = __uint_as_float(r.z << 16);
+    x[5] = __uint_as_float(r.z & 0xffff0000u);
+    x[6] = __uint_as_float(r.w << 16);
+    x[7] = __uint_as_float(r.w & 0xffff0000u);
   }
   static __device__ __forceinline__ float one(const __nv_bfloat16* p) {
     const uint32_t w = __ldcs(reinterpret_cast<const unsigned short*>(p));
@@ -128,6 +153,17 @@ __device__ __forceinline__ uint32_t philox_word(uint32_t c0, uint32_t c1, uint32
     k1 += 0xBB67AE85u;
   }
   return c0;
+}
+
+// The Gumbel noise of (row, column) under the call's seed: Philox at counter
+// (column, row low, row high, 0), the first word's top 24 bits as u in [0, 1),
+// -log(-log(max(u, 1e-20))) with IEEE logf (the plain version follows it).
+__device__ __forceinline__ float gumbel_at(int col, long long row, unsigned long long seed) {
+  const uint32_t word = philox_word((uint32_t)col, (uint32_t)row,
+                                    (uint32_t)((unsigned long long)row >> 32), 0u,
+                                    (uint32_t)seed, (uint32_t)(seed >> 32));
+  const float u = (float)(word >> 8) * 5.9604644775390625e-08f;  // 2^-24
+  return -logf(-logf(fmaxf(u, 1e-20f)));
 }
 
 // One lane's running state over its share of a row.
@@ -319,14 +355,7 @@ sample_rows(const T* __restrict__ logits, const float* __restrict__ temp_ptr, fl
     float temp = temp_ptr ? temp_ptr[row / rows_per_temp] : temp_value;
     temp = fmaxf(temp, 1e-10f);
     float score = -INFINITY;
-    if (kc != NO_COL) {
-      const uint32_t word = philox_word((uint32_t)kc, (uint32_t)row,
-                                        (uint32_t)((unsigned long long)row >> 32), 0u,
-                                        (uint32_t)seed, (uint32_t)(seed >> 32));
-      const float u = (float)(word >> 8) * 5.9604644775390625e-08f;  // 2^-24
-      const float g = -logf(-logf(fmaxf(u, 1e-20f)));
-      score = kv / temp + g;
-    }
+    if (kc != NO_COL) score = kv / temp + gumbel_at(kc, row, seed);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       const float os = __shfl_xor_sync(FULL, score, off);
@@ -364,6 +393,253 @@ int launch(int list, const void* logits, const float* temp_ptr, float temp_value
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// k > 16: one block a row, radix select (see the head of this file)
+// ---------------------------------------------------------------------------
+
+constexpr int RS_THREADS = 256;  // one thread per bin of an 8-bit digit
+constexpr int RS_WARPS = RS_THREADS / 32;
+constexpr int BINS = 256;
+constexpr size_t ROW_SMEM_MAX = 200 * 1024;  // rows up to 51200 keys stay in shared memory
+                                             // (RADIX_ROW_SMEM_MAX in ops/sampling.py)
+
+// Larger float, larger key; -0 and +0 map to one key, as they compare equal.
+__device__ __forceinline__ uint32_t order_key(float x) {
+  const uint32_t u = x == 0.f ? 0u : __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+struct RadixShared {
+  unsigned hist[BINS];
+  unsigned warp_sum[RS_WARPS];
+  float red_m[RS_WARPS], red_s[RS_WARPS];
+  float red_score[RS_WARPS];
+  int red_col[RS_WARPS];
+  uint32_t prefix;
+  int remaining;
+};
+
+// Inclusive prefix sum of one value per thread over the block, in thread order.
+__device__ __forceinline__ unsigned block_inclusive_scan(unsigned x, RadixShared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned y = __shfl_up_sync(FULL, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) sh.warp_sum[warp] = x;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) x += sh.warp_sum[w];
+  return x;
+}
+
+// N consecutive values from column col0 into a thread's online log-sum-exp
+// (m, s), and their keys into the row's key buffer.
+template <int N>
+__device__ __forceinline__ void read_chunk(const float (&x)[N], int col0, float& m, float& s,
+                                           uint32_t* keys) {
+  float cmax = x[0];
+#pragma unroll
+  for (int e = 1; e < N; ++e) cmax = fmaxf(cmax, x[e]);
+  const float nm = fmaxf(m, cmax);
+  float part = 0.f;
+#pragma unroll
+  for (int e = 0; e < N; ++e) part += exp2_approx((x[e] - nm) * LOG2E);
+  s = s * rescale(m, nm) + part;
+  m = nm;
+#pragma unroll
+  for (int e = 0; e < N; ++e) keys[col0 + e] = order_key(x[e]);
+}
+
+// IN_SMEM: the row's keys live in dynamic shared memory; else in the
+// block's row of a global scratch buffer (gridDim.x rows of V keys).
+template <typename T, bool IN_SMEM>
+__global__ void __launch_bounds__(RS_THREADS)
+sample_rows_radix(const T* __restrict__ logits, const float* __restrict__ temp_ptr,
+                  float temp_value, long long rows_per_temp,
+                  const unsigned long long* __restrict__ seed_ptr, int* __restrict__ pred,
+                  float* __restrict__ conf, uint32_t* __restrict__ scratch, long long rows,
+                  int V, int k) {
+  extern __shared__ uint32_t smem_keys[];
+  __shared__ RadixShared sh;
+  uint32_t* keys = IN_SMEM ? smem_keys : scratch + (size_t)blockIdx.x * V;
+  constexpr int VEC = Elem<T>::VEC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned long long seed = *seed_ptr;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* rp = logits + row * V;
+    // (read first: few values are live across the 64-bit division's call)
+    const float temp = fmaxf(temp_ptr ? temp_ptr[row / rows_per_temp] : temp_value, 1e-10f);
+
+    // one read of the row: the keys, and an online log-sum-exp per thread
+    float m = -INFINITY, s = 0.f;
+    int head = (int)(((16 - (reinterpret_cast<uintptr_t>(rp) & 15)) & 15) / sizeof(T));
+    head = min(head, V);
+    if (tid < head) {
+      const float x[1] = {Elem<T>::one(rp + tid)};
+      read_chunk(x, tid, m, s, keys);
+    }
+    const int nvec = (V - head) / VEC;
+    const uint4* vp = reinterpret_cast<const uint4*>(rp + head);
+    for (int c = tid; c < nvec; c += RS_THREADS) {
+      float x[VEC];
+      Elem<T>::widen(__ldcs(vp + c), x);
+      read_chunk(x, head + c * VEC, m, s, keys);
+    }
+    const int tail = head + nvec * VEC + tid;
+    if (tail < V) {
+      const float x[1] = {Elem<T>::one(rp + tail)};
+      read_chunk(x, tail, m, s, keys);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float om = __shfl_xor_sync(FULL, m, off);
+      const float os = __shfl_xor_sync(FULL, s, off);
+      const float nm = fmaxf(m, om);
+      s = s * rescale(m, nm) + os * rescale(om, nm);
+      m = nm;
+    }
+    if (lane == 0) {  // merged by thread 0 at the end: nothing else is live
+      sh.red_m[warp] = m;
+      sh.red_s[warp] = s;
+    }
+    __syncthreads();  // the keys and the warps' (m, s) are stored
+
+    // radix select: the k-th largest key, 8 bits a pass from the top
+    uint32_t prefix = 0, pmask = 0;
+    int remaining = k;  // rank of the k-th key among the keys matching prefix
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      sh.hist[tid] = 0;
+      __syncthreads();
+      for (int base = 0; base < V; base += RS_THREADS) {
+        const int i = base + tid;
+        uint32_t key = 0;
+        bool in = false;
+        if (i < V) {
+          key = keys[i];
+          in = (key & pmask) == prefix;
+        }
+        const unsigned digit = (key >> shift) & (BINS - 1);
+        const unsigned active = __ballot_sync(FULL, in);
+        if (in) {
+          const unsigned peers = __match_any_sync(active, digit);
+          if (lane == __ffs(peers) - 1) atomicAdd(&sh.hist[digit], __popc(peers));
+        }
+      }
+      __syncthreads();
+      // thread t holds bin 255 - t: the scan counts the keys with a digit >= it
+      const unsigned h = sh.hist[BINS - 1 - tid];
+      const unsigned incl = block_inclusive_scan(h, sh);
+      if (incl >= (unsigned)remaining && incl - h < (unsigned)remaining) {
+        sh.prefix = prefix | ((uint32_t)(BINS - 1 - tid) << shift);
+        sh.remaining = remaining - (int)(incl - h);
+      }
+      __syncthreads();
+      prefix = sh.prefix;
+      remaining = sh.remaining;
+      pmask |= (uint32_t)(BINS - 1) << shift;
+    }
+    const uint32_t thr = prefix;   // the k-th largest key
+    const unsigned need = remaining;  // how many keys equal to it are kept
+
+    // warp w owns columns [lo, hi); its equal keys come after those of the
+    // warps before it, so admitting the lowest columns first is a prefix count
+    const int seg = ((V + RS_WARPS - 1) / RS_WARPS + 31) & ~31;
+    const int lo = warp * seg, hi = min(lo + seg, V);
+    unsigned equal = 0;
+    for (int c = lo; c < hi; c += 32) {
+      const int i = c + lane;
+      const bool eq = i < hi && keys[i] == thr;
+      equal += __popc(__ballot_sync(FULL, eq));
+    }
+    if (lane == 0) sh.warp_sum[warp] = equal;
+    __syncthreads();
+    unsigned rank0 = 0;
+    for (int w = 0; w < warp; ++w) rank0 += sh.warp_sum[w];
+
+    // the survivors: noise, score, and the argmax with ties to the lower column
+    float score = -INFINITY;
+    int col = NO_COL;
+    for (int c = lo; c < hi; c += 32) {
+      const int i = c + lane;
+      const uint32_t key = i < hi ? keys[i] : 0u;
+      const bool eq = i < hi && key == thr;
+      const unsigned ballot = __ballot_sync(FULL, eq);
+      const unsigned rank = rank0 + __popc(ballot & ((1u << lane) - 1u));
+      rank0 += __popc(ballot);
+      if ((i < hi && key > thr) || (eq && rank < need)) {
+        const float sc = key_value(key) / temp + gumbel_at(i, row, seed);
+        if (before(sc, i, score, col)) {
+          score = sc;
+          col = i;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float os = __shfl_xor_sync(FULL, score, off);
+      const int oc = __shfl_xor_sync(FULL, col, off);
+      if (before(os, oc, score, col)) {
+        score = os;
+        col = oc;
+      }
+    }
+    if (lane == 0) {
+      sh.red_score[warp] = score;
+      sh.red_col[warp] = col;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < RS_WARPS; ++w) {
+        if (before(sh.red_score[w], sh.red_col[w], score, col)) {
+          score = sh.red_score[w];
+          col = sh.red_col[w];
+        }
+      }
+      m = sh.red_m[0];
+      s = sh.red_s[0];
+      for (int w = 1; w < RS_WARPS; ++w) {
+        const float om = sh.red_m[w], os = sh.red_s[w];
+        const float nm = fmaxf(m, om);
+        s = s * rescale(m, nm) + os * rescale(om, nm);
+        m = nm;
+      }
+      pred[row] = col;
+      conf[row] = expf(key_value(keys[col]) - m - logf(s));
+    }
+    __syncthreads();  // the next row reuses the keys and sh
+  }
+}
+
+template <typename T>
+int launch_radix(const void* logits, const float* temp_ptr, float temp_value,
+                 long long rows_per_temp, const unsigned long long* seed, int* pred, float* conf,
+                 uint32_t* scratch, long long scratch_rows, long long rows, int V, int k,
+                 cudaStream_t stream) {
+  const T* x = static_cast<const T*>(logits);
+  if (scratch == nullptr) {
+    const size_t smem = (size_t)V * sizeof(uint32_t);
+    if (smem > ROW_SMEM_MAX) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          sample_rows_radix<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int blocks = (int)(rows < MAX_BLOCKS ? rows : MAX_BLOCKS);
+    sample_rows_radix<T, true><<<blocks, RS_THREADS, smem, stream>>>(
+        x, temp_ptr, temp_value, rows_per_temp, seed, pred, conf, nullptr, rows, V, k);
+  } else {  // a row too long for shared memory: its keys go to the scratch row
+    const int blocks = (int)(rows < scratch_rows ? rows : scratch_rows);
+    sample_rows_radix<T, false><<<blocks, RS_THREADS, 0, stream>>>(
+        x, temp_ptr, temp_value, rows_per_temp, seed, pred, conf, scratch, rows, V, k);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch.  temp_ptr null: every row takes
@@ -383,4 +659,27 @@ extern "C" int sample_fwd(const void* logits, int is_bf16, const void* temp_ptr,
                                  st);
   return launch<float>(list, logits, tp, temp_value, rows_per_temp, sp, static_cast<int*>(pred),
                        static_cast<float*>(conf), rows, V, k, st);
+}
+
+// k > 16: one block a row, radix select.  Same arguments and result as
+// sample_fwd, for any 1 <= k <= V, and a key buffer: scratch null keeps each
+// row's keys in shared memory (V * 4 bytes <= 200 KB); else scratch holds
+// scratch_rows rows of V 32-bit keys, one per block.
+extern "C" int sample_radix_fwd(const void* logits, int is_bf16, const void* temp_ptr,
+                                float temp_value, long long rows_per_temp, const void* seed,
+                                void* pred, void* conf, void* scratch, long long scratch_rows,
+                                long long rows, int V, int k, void* stream) {
+  if (rows <= 0 || V <= 0 || k < 1 || k > V || rows_per_temp < 1 ||
+      (scratch != nullptr && scratch_rows < 1))
+    return (int)cudaErrorInvalidValue;
+  const float* tp = static_cast<const float*>(temp_ptr);
+  const unsigned long long* sp = static_cast<const unsigned long long*>(seed);
+  uint32_t* keys = static_cast<uint32_t*>(scratch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_radix<__nv_bfloat16>(logits, tp, temp_value, rows_per_temp, sp,
+                                       static_cast<int*>(pred), static_cast<float*>(conf), keys,
+                                       scratch_rows, rows, V, k, st);
+  return launch_radix<float>(logits, tp, temp_value, rows_per_temp, sp, static_cast<int*>(pred),
+                             static_cast<float*>(conf), keys, scratch_rows, rows, V, k, st);
 }

@@ -14,7 +14,10 @@ def create_model(arch='pipeline', version='paintmindv1', pretrained=True,
                  checkpoint_path=None, **kwargs):
     """``kwargs`` go to the model: ``device`` (default ``'cuda'``),
     ``compute_dtype``, ``param_dtype``, ``seed``; for a pipeline also
-    ``stage1_checkpoint_path`` and ``text_encoder``."""
+    ``stage1_checkpoint_path`` and ``text_encoder``: the conditioning tower
+    (``'auto'``, ``None``, or a tower object; ``paintmindv1-clip`` and
+    ``paintmindv1-imgvar`` take their CLIP tower this way, e.g.
+    ``models.clip.load_image_tower(path)``)."""
     if pretrained and checkpoint_path is None:
         raise ValueError(
             f'create_model({arch!r}, {version!r}): pretrained=True needs a '

@@ -20,14 +20,17 @@ Randomness comes from ``torch.Generator``s; the exact sampler also takes
 explicit per-step Gumbel ``noise``, which is how the tests feed it the noise
 the JAX package draws.
 
-Not ported yet: the MoE, pipeline-parallel and int8 branches and the text
-towers (ROADMAP).
+Conditioning: ``embed_text`` takes prompts, token ids or conditioning
+images through the pipeline's tower (``models/t5.py``, ``models/clip.py``),
+or precomputed (B, M, t5_dim) contexts.  Not ported yet: the MoE,
+pipeline-parallel and int8 branches (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import torch
@@ -383,9 +386,13 @@ class Pipeline(nn.Module):
     """Frozen VQGAN (``vqgan``) + conditional transformer (``transformer``)
     + ``mask_token``: the parameter tree of ``paintmind_tpu``'s Pipeline.
 
-    Contexts are precomputed (B, M, t5_dim) embeddings: the text towers
-    are not ported yet.  Built frozen and in eval mode, with the weights in
-    ``compute_dtype`` when one is given (the sampling set-up).  For
+    ``text_encoder``: the conditioning tower, kept outside the parameter
+    tree (a T5TextEncoder, CLIPTextEmbedder or CLIPImageEmbedder, or any
+    callable with their contract); ``'auto'`` builds the registry's T5 from
+    the local Hugging Face cache at first use and refuses a CLIP tower (no
+    trained CLIP weights are reachable offline); ``None`` takes precomputed
+    (B, M, t5_dim) contexts only.  Built frozen and in eval mode, with the
+    weights in ``compute_dtype`` when one is given (the sampling set-up).  For
     training build it with ``compute_dtype=None`` (fp32 master weights; the
     layers cast them to the activations' type per call):
     ``trainable_parameters()`` are ``transformer`` and ``mask_token``, and
@@ -402,8 +409,6 @@ class Pipeline(nn.Module):
         cfg = self.config
         if cfg.num_experts:
             raise _not_ported('the MoE stage-2 variant', 8)
-        if text_encoder not in ('auto', None):
-            raise _not_ported('a text tower (T5 / CLIP)', 6)
         device = vm.resolve_device(device)
         self.compute_dtype = compute_dtype
 
@@ -427,6 +432,11 @@ class Pipeline(nn.Module):
         self.requires_grad_(False)
         self.eval()
 
+        # the tower is no submodule: it is not part of the parameter tree
+        # (checkpoints, to_flat) and keeps its own device and type
+        object.__setattr__(self, 'text_model', None if text_encoder in
+                           ('auto', None) else text_encoder)
+        self._text_lock = threading.Lock()
         self._text_disabled = text_encoder is None
         self.mask_token_id = cfg.mask_token_id
         self.num_tokens = cfg.num_tokens
@@ -451,21 +461,57 @@ class Pipeline(nn.Module):
         frozen, reference generate.py:56)."""
         return [self.mask_token, *self.transformer.parameters()]
 
+    def _get_text_model(self):
+        if self._text_disabled:
+            raise RuntimeError(
+                'this pipeline was built with text_encoder=None (text '
+                'disabled) — pass precomputed context embeddings, or '
+                "construct with text_encoder='auto' or a tower")
+        with self._text_lock:  # serving encodes from concurrent threads
+            if self.text_model is None:
+                tower = self.config.t5
+                if tower.startswith('clip'):
+                    # a bare CLIP embedder would condition on random
+                    # weights, unrelated to the ones the pipeline trained with
+                    raise RuntimeError(
+                        f'pipeline tower {tower!r} has no pretrained CLIP '
+                        'weights reachable offline — pass the trained '
+                        'tower explicitly (text_encoder=..., e.g. '
+                        'clip.load_image_tower(tower.npz) saved by '
+                        'tools/train_imgvar.py, or --tower-checkpoint)')
+                from .t5 import T5_VERSIONS, T5TextEncoder
+                version, _ = T5_VERSIONS[tower]
+                object.__setattr__(self, 'text_model',
+                                   T5TextEncoder(version, device=self.device))
+        return self.text_model
+
     def embed_text(self, text):
-        """(B, M, t5_dim) embeddings (numpy or torch) | None -> context on
-        this pipeline's device, or None."""
+        """list[str] | (B, M) token ids | (B, H, W, 3) conditioning images
+        (clip-img towers) | (B, M, t5_dim) embeddings (numpy or torch) |
+        None -> context on this pipeline's device, or None.  The tower runs
+        without autograd (a frozen tower; grad mode is per thread, and the
+        serving handlers call this from theirs), but outside inference mode:
+        training consumes these contexts in a graph."""
         if text is None:
             return None
         if isinstance(text, (list, tuple)) and text and isinstance(text[0], str):
-            if self._text_disabled:
-                raise RuntimeError(
-                    'this pipeline was built with text_encoder=None (text '
-                    'disabled): pass precomputed context embeddings')
-            raise _not_ported('text encoding (T5 / CLIP towers)', 6)
-        ctx = torch.as_tensor(text if isinstance(text, torch.Tensor)
-                              else np.asarray(text), device=self.device)
-        if ctx.ndim != 3 or not ctx.is_floating_point():
-            raise _not_ported('conditioning on token ids or images', 6)
+            with torch.no_grad():
+                ctx = self._get_text_model()(list(text))
+        else:
+            ctx = torch.as_tensor(text if isinstance(text, torch.Tensor)
+                                  else np.asarray(text))
+            if ctx.ndim == 2 and not ctx.is_floating_point():
+                tower = self._get_text_model()
+                with torch.no_grad():  # CLIP text: __call__ takes the ids
+                    ctx = getattr(tower, 'encode_ids', tower)(ctx)
+            elif ctx.ndim == 4:  # conditioning images; a context is 3-D
+                with torch.no_grad():
+                    ctx = self._get_text_model()(ctx)
+            elif ctx.ndim != 3 or not ctx.is_floating_point():
+                raise ValueError(f'text: prompts, (B, M) token ids, (B, H, W, '
+                                 f'3) images or (B, M, D) contexts, got a '
+                                 f'{ctx.ndim}-D {ctx.dtype} array')
+        ctx = ctx.to(self.device)
         return ctx.float() if ctx.dtype == torch.float64 else ctx
 
     def to_latent(self, img, text=None):

@@ -22,6 +22,15 @@ tournaments under the total order (value descending, column ascending),
 which is exactly ``topk_keep_mask``, and the noise is drawn for the k
 survivors alone.  There is no barrier and no shared memory.
 
+Lists that long do not fit in registers past k = 16, so ``k > 16`` (any k up
+to V) goes to a second kernel in the same source: one block a row, the row's
+order-preserving 32-bit keys in shared memory (in a scratch row in device
+memory when the row is longer than 51200), a radix select of the k-th
+key (four 8-bit digit passes), the keys equal to it admitted lowest column
+first by a block prefix count, and the same noise at the survivors.  It is
+bound by the same bytes.  The wrapper picks the kernel by k; each counts its
+own launches.  ``sample_radix`` is that kernel's selection on the CPU.
+
 Randomness: Philox 4x32-10 under a 64-bit per-call seed drawn from the
 caller's ``torch.Generator``, at counter (column, row low, row high, 0), so
 the noise of an entry depends on nothing but (seed, row, column).
@@ -40,13 +49,18 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches so far; chip_smoke.py resets and reads it
+# kernel launches so far (k <= MAX_K, k > MAX_K); chip_smoke.py resets, reads
+launches = 0
+launches_radix = 0
 
 NEG_INF = -1e30
 MAX_K = 16                  # the kernel's longest per-lane list
 LIST_SIZES = (1, 5, 16)     # list lengths the kernel is compiled for
 UNROLL = 4                  # 16-byte chunks a lane has in flight (one group)
-_fn = None
+RADIX_WARPS = 8             # warps of the k > MAX_K kernel's block
+RADIX_ROW_SMEM_MAX = 200 * 1024  # bytes of keys a block keeps in shared memory
+RADIX_SCRATCH_ROWS = 1024   # blocks (scratch key rows) when a row is longer
+_fns = {}
 
 
 def topk_keep_mask(l, k):
@@ -317,33 +331,107 @@ def sample_streamed(logits, temperature, k, noise, *, vec=None, misalign=0):
             torch.from_numpy(keep).reshape(logits.shape))
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load('sampling').sample_fwd
+def order_keys(x):
+    """The k > MAX_K kernel's keys: fp32 numpy -> uint32 numpy that order as
+    the values do, with -0 and +0 on one key."""
+    u = np.where(x == 0, np.float32(0), x).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _radix_row(x, noise, temp, k):
+    """One row through the k > MAX_K kernel's selection.  x, noise: (V,)
+    fp32 numpy.  Returns (pred, conf, kept columns)."""
+    v = x.shape[0]
+    keys = order_keys(x)
+    prefix, pmask, remaining = 0, 0, k
+    for shift in (24, 16, 8, 0):  # one 8-bit digit a pass, from the top
+        match = (keys & np.uint32(pmask)) == prefix
+        hist = np.bincount((keys[match] >> shift) & 255, minlength=256)
+        incl = np.cumsum(hist[::-1])  # thread t scans bin 255 - t
+        t = int(np.argmax(incl >= remaining))
+        remaining -= int(incl[t] - hist[255 - t])
+        prefix |= (255 - t) << shift
+        pmask |= 255 << shift
+    thr, need = np.uint32(prefix), remaining
+    # warp w owns a run of columns; equal keys are admitted in column order
+    # after those of the runs before it, by ballot within a 32-column step
+    per_warp = -(-v // RADIX_WARPS)
+    seg = -(-per_warp // 32) * 32
+    kept = []
+    rank = 0
+    for lo in range(0, v, seg):
+        for c in range(lo, min(lo + seg, v), 32):
+            cols = np.arange(c, min(c + 32, lo + seg, v))
+            eq = keys[cols] == thr
+            ranks = rank + np.cumsum(eq) - eq
+            rank += int(eq.sum())
+            kept.extend(cols[(keys[cols] > thr) | (eq & (ranks < need))])
+    kept = np.asarray(kept, np.int64)
+    score = x[kept] / np.float32(temp) + noise[kept]
+    best = kept[np.argmax(score)]  # first, so the lower column, on a tie
+    m = x.max()
+    s = np.exp2((x - m) * _LOG2E).sum(dtype=np.float32)
+    return best, np.exp(x[best] - m - np.log(s), dtype=np.float32), kept
+
+
+def sample_radix(logits, temperature, k, noise):
+    """The k > MAX_K kernel's algorithm on the CPU: order-preserving keys,
+    four 8-bit radix passes to the k-th key, the equal keys admitted lowest
+    column first over the warps' runs of columns, the argmax of value / temp
+    + noise at the survivors (the lower column on a tie).  Any 1 <= k <= V.
+    Returns (pred int32, conf fp32, keep bool (..., V))."""
+    shape = logits.shape[:-1]
+    v = logits.shape[-1]
+    if not 1 <= k <= v:
+        raise ValueError(f'top-k {k} out of range for {v} classes')
+    x = logits.detach().float().reshape(-1, v).numpy()
+    g = noise.detach().float().reshape(-1, v).numpy()
+    temps = torch.clamp(_row_temperatures(temperature, shape, 'cpu'),
+                        min=1e-10).numpy()
+    pred = np.zeros(x.shape[0], np.int32)
+    conf = np.zeros(x.shape[0], np.float32)
+    keep = np.zeros(x.shape, bool)
+    for r in range(x.shape[0]):
+        pred[r], conf[r], kept = _radix_row(x[r], g[r], temps[r], k)
+        keep[r, kept] = True
+    return (torch.from_numpy(pred).reshape(shape),
+            torch.from_numpy(conf).reshape(shape),
+            torch.from_numpy(keep).reshape(logits.shape))
+
+
+def _kernel(name):
+    """The C entry point ``name`` of the sampling library (``sample_fwd`` for
+    k <= MAX_K, ``sample_radix_fwd`` above, which also takes a key scratch
+    buffer and its row count), with its argument types."""
+    if name not in _fns:
+        fn = getattr(_build.load('sampling'), name)
+        scratch = ([ctypes.c_void_p, ctypes.c_longlong]
+                   if name == 'sample_radix_fwd' else [])
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, *scratch,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
 def fused_gumbel_topk_sample(logits, temperature, k=5, *, generator=None):
     """K3 on a CUDA tensor, the plain version (with noise drawn from
     ``generator``) on a CPU tensor.  logits: (..., V) fp32 or bf16,
     contiguous; temperature: scalar or per-sample (B,) (B =
-    logits.shape[0]), clamped at 1e-10.  The kernel takes k <= 16 (the JAX
-    function takes any k; every entry point defaults to 1 or 5).  Returns
-    (pred int32 (...,), conf fp32 (...,))."""
+    logits.shape[0]), clamped at 1e-10; any 1 <= k <= V, as the JAX
+    function takes: the warp-a-row kernel for k <= 16, the block-a-row
+    radix-select kernel above.  Returns (pred int32 (...,), conf fp32
+    (...,))."""
+    v = logits.shape[-1]
+    if not 1 <= k <= v:
+        raise ValueError(f'top-k {k} out of range for {v} classes')
     if logits.device.type == 'cpu':
         noise = gumbel_noise(logits.shape, generator=generator,
                              device=logits.device)
         return gumbel_topk_sample_plain(logits, temperature, k, noise)
-    if k > MAX_K:
-        raise ValueError(f'fused_gumbel_topk_sample: the kernel keeps at most '
-                         f'{MAX_K} candidates per row, got top-k {k}')
     if logits.device.type != 'cuda':
         raise ValueError(f'fused_gumbel_topk_sample: device {logits.device}')
     if logits.dtype not in (torch.float32, torch.bfloat16):
@@ -352,9 +440,6 @@ def fused_gumbel_topk_sample(logits, temperature, k=5, *, generator=None):
     if not logits.is_contiguous():
         raise ValueError('fused_gumbel_topk_sample takes contiguous logits')
     shape = logits.shape[:-1]
-    v = logits.shape[-1]
-    if not 1 <= k <= v:
-        raise ValueError(f'top-k {k} out of range for {v} classes')
     if v >= 2 ** 31:
         raise ValueError(f'{v} classes: columns are 32-bit in the kernel')
     t = logits.numel() // v
@@ -376,14 +461,25 @@ def fused_gumbel_topk_sample(logits, temperature, k=5, *, generator=None):
     conf = torch.empty(shape, dtype=torch.float32, device=logits.device)
     if t == 0:
         return pred, conf
-    global launches
+    global launches, launches_radix
+    args = [logits.data_ptr(), int(logits.dtype == torch.bfloat16),
+            None if temp is None else temp.data_ptr(), temp_value,
+            rows_per_temp, seed.data_ptr(), pred.data_ptr(), conf.data_ptr()]
+    if k <= MAX_K:
+        name = 'sample_fwd'
+    else:
+        name, scratch = 'sample_radix_fwd', None
+        if v * 4 > RADIX_ROW_SMEM_MAX:  # the row's keys do not fit on chip
+            scratch = torch.empty((min(t, RADIX_SCRATCH_ROWS), v),
+                                  dtype=torch.int32, device=logits.device)
+        args += [None if scratch is None else scratch.data_ptr(),
+                 0 if scratch is None else scratch.shape[0]]
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     with torch.cuda.device(logits.device):
-        err = _kernel()(logits.data_ptr(),
-                        int(logits.dtype == torch.bfloat16),
-                        None if temp is None else temp.data_ptr(), temp_value,
-                        rows_per_temp, seed.data_ptr(), pred.data_ptr(),
-                        conf.data_ptr(), t, v, k, stream)
+        err = _kernel(name)(*args, t, v, k, stream)
     _build.check(err, 'sampling')
-    launches += 1
+    if k <= MAX_K:
+        launches += 1
+    else:
+        launches_radix += 1
     return pred, conf

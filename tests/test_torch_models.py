@@ -315,9 +315,9 @@ def test_entry_points_default_to_the_card():
 
 
 def test_import_hygiene():
-    """The package (every module of it, the training ones included) and
-    chip_smoke.py's import block load neither JAX, optax, orbax nor anything
-    of paintmind_tpu."""
+    """The package (every module of it, the training, serving and tower
+    ones included) and chip_smoke.py's import block load neither JAX, optax,
+    orbax nor anything of paintmind_tpu."""
     code = (
         'import importlib, importlib.util, pkgutil, sys\n'
         'import paintmind_tpu_torch as pkg\n'
@@ -330,7 +330,12 @@ def test_import_hygiene():
         '("jax", "jaxlib", "optax", "orbax", "paintmind_tpu")]\n'
         'need = ["paintmind_tpu_torch.utils.trainer", '
         '"paintmind_tpu_torch.train.steps", '
-        '"paintmind_tpu_torch.optim.optimizers"]\n'
+        '"paintmind_tpu_torch.optim.optimizers", '
+        '"paintmind_tpu_torch.serving.engine", '
+        '"paintmind_tpu_torch.serving.server", '
+        '"paintmind_tpu_torch.serving.__main__", '
+        '"paintmind_tpu_torch.models.t5", '
+        '"paintmind_tpu_torch.models.clip"]\n'
         'bad += [m for m in need if m not in sys.modules]\n'
         'print(len(sys.modules), bad)\n'
         'sys.exit(1 if bad else 0)\n')

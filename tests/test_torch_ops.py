@@ -240,9 +240,17 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
                                 torch.empty(8, 32, device='meta'))
     with pytest.raises(ValueError):
         tsm.fused_gumbel_topk_sample(torch.empty(4, 8, device='meta'), 1.0)
-    # the sampling kernel keeps at most 16 candidates per row
-    with pytest.raises(ValueError, match='at most 16'):
+    # any 1 <= k <= V: k > 16 goes to the radix-select kernel, so only k
+    # outside the row is refused (before any device check)
+    for k in (0, 65):
+        with pytest.raises(ValueError, match='out of range'):
+            tsm.fused_gumbel_topk_sample(torch.empty(4, 64, device='meta'),
+                                         1.0, k)
+        with pytest.raises(ValueError, match='out of range'):
+            tsm.sample_radix(torch.zeros(4, 64), 1.0, k, torch.zeros(4, 64))
+    with pytest.raises(ValueError, match='device'):
         tsm.fused_gumbel_topk_sample(torch.empty(4, 64, device='meta'), 1.0, 17)
+    # the warp-a-row kernel's per-lane lists hold at most 16
     with pytest.raises(ValueError, match='at most 16'):
         tsm.sample_streamed(torch.zeros(4, 64), 1.0, 17, torch.zeros(4, 64))
 
@@ -372,6 +380,89 @@ def test_sample_streamed_matches_plain_and_jax_math(temperature, k):
         plain_pred, plain_conf = tsm.gumbel_topk_sample_plain(
             torch.from_numpy(logits), torch.as_tensor(temp), k, noise)
         jax_pred, jax_conf = _jax_sample_math(logits, jtemp, noise.numpy(), k)
+        np.testing.assert_array_equal(pred.numpy(), plain_pred.numpy())
+        np.testing.assert_array_equal(pred.numpy(), jax_pred)
+        assert float((conf - plain_conf).abs().max()) <= 1e-6
+        assert float(np.abs(conf.numpy() - jax_conf).max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# K3's k > 16 kernel, block for block (sample_radix)
+# ---------------------------------------------------------------------------
+
+def _radix_cases(rng):
+    """The tie cases (512 wide), ragged (500), narrow (100) and rows of +0
+    and -0 (300 wide), each with k = V; a wide row (4096) without it."""
+    zeros = np.where(rng.random((4, 300)) < 0.5, 0.0, -0.0).astype(np.float32)
+    zeros[:, ::7] = 1.0
+    cases = [c[:6] for c in _tie_cases(rng)]
+    cases += [c[:6, :500] for c in _tie_cases(rng)[1:]]
+    cases.append((rng.standard_normal((4, 100)) * 3).astype(np.float32))
+    cases.append(zeros)
+    wide = [rng.integers(0, 3, (3, 4096)).astype(np.float32),
+            (rng.standard_normal((3, 4096)) * 3).astype(np.float32)]
+    return cases, wide
+
+
+def test_order_keys_order_as_the_values():
+    """The radix kernel's keys: a larger value is a larger key, equal values
+    (+0 and -0 too) one key; exact over signs, magnitudes and infinities."""
+    x = np.array([-np.inf, -3e38, -2.5, -1e-30, -0.0, 0.0, 1e-30, 0.5, 2.5,
+                  3e38, np.inf], np.float32)
+    keys = tsm.order_keys(x)
+    assert keys.dtype == np.uint32
+    assert (np.diff(keys.astype(np.int64))[[i for i in range(10) if i != 4]]
+            > 0).all()
+    assert keys[4] == keys[5]
+    rng = np.random.default_rng(0)
+    y = (rng.standard_normal(1000) * 10.0 ** rng.integers(-5, 5, 1000)).astype(
+        np.float32)
+    np.testing.assert_array_equal(np.argsort(tsm.order_keys(y), kind='stable'),
+                                  np.argsort(y, kind='stable'))
+
+
+@pytest.mark.parametrize('k', [17, 32, 100, 'V'])
+def test_sample_radix_keeps_the_topk_mask(k):
+    """The k > 16 kernel's selection (radix passes over the keys, the equal
+    keys admitted lowest column first over the warps' runs) keeps exactly
+    ``topk_keep_mask``'s entries, and so the JAX mask's, with ties: exact."""
+    rng = np.random.default_rng(17)
+    cases, wide = _radix_cases(rng)
+    for l in cases + (wide if k != 'V' else []):
+        kk = l.shape[-1] if k == 'V' else k
+        lt = torch.from_numpy(l)
+        keep = tsm.sample_radix(lt, 1.0, kk, torch.zeros_like(lt))[2].numpy()
+        np.testing.assert_array_equal(keep, tsm.topk_keep_mask(lt, kk).numpy())
+        np.testing.assert_array_equal(
+            keep, np.asarray(jsm.topk_keep_mask(jnp.asarray(l), kk)))
+        assert (keep.sum(-1) == kk).all()
+
+
+@pytest.mark.parametrize('temperature', [1e-10, 0.7, 'per-sample'])
+@pytest.mark.parametrize('k', [17, 32, 100, 'V'])
+def test_sample_radix_matches_plain_and_jax_math(temperature, k):
+    """The k > 16 kernel's algorithm on the kernel's own noise
+    (``philox_gumbel``) against ``gumbel_topk_sample_plain`` and the JAX
+    kernel's arithmetic: pred equal, conf within 1e-6."""
+    rng = np.random.default_rng(23)
+    b, l = 3, 2
+    cases, wide = _radix_cases(rng)
+    for logits in cases[1::2] + (wide[1:] if k != 'V' else []):
+        v = logits.shape[-1]
+        kk = v if k == 'V' else k
+        logits = np.resize(logits, (b, l, v)).astype(np.float32)
+        noise = tsm.philox_gumbel(int(rng.integers(1 << 62)), (b, l, v))
+        if temperature == 'per-sample':
+            temp = np.asarray([0.5, 1.0, 2.0], np.float32)
+            jtemp = temp[:, None, None]
+        else:
+            temp = jtemp = np.float32(temperature)
+        pred, conf, _ = tsm.sample_radix(torch.from_numpy(logits),
+                                         torch.as_tensor(temp), kk, noise)
+        assert pred.dtype == torch.int32 and conf.shape == (b, l)
+        plain_pred, plain_conf = tsm.gumbel_topk_sample_plain(
+            torch.from_numpy(logits), torch.as_tensor(temp), kk, noise)
+        jax_pred, jax_conf = _jax_sample_math(logits, jtemp, noise.numpy(), kk)
         np.testing.assert_array_equal(pred.numpy(), plain_pred.numpy())
         np.testing.assert_array_equal(pred.numpy(), jax_pred)
         assert float((conf - plain_conf).abs().max()) <= 1e-6
