@@ -18,8 +18,12 @@ exits non-zero with no result line:
   3. holds each kernel against its plain PyTorch version at the main
      path's shapes, and times kernel, plain version and (where one exists)
      the PyTorch library call, beside the least time the card could take;
+     K1 and K4 also at head dims 128 and 32, K2 at code dims 8, 16, 12, 48
+     and 100;
   4. stage 1: the shipped vit-s-vqgan weights reconstruct 8 seeded 256²
-     images through the kernels and through the plain versions;
+     images through the kernels and through the plain versions; then a
+     registered model of head dim 16 and code dim 8 runs ``generate``,
+     ``reconstruct`` and a training microbatch through the kernels;
   5. stage 2: a full-width paintmindv1 pipeline (seeded random stage-2
      weights, bf16) runs a 16-step ``generate`` at B = 8, the same with
      classifier-free guidance, and an ``inpaint``; the launch counters must
@@ -39,9 +43,16 @@ exits non-zero with no result line:
      updates of the step function (Lion, dropout on, two microbatches
      each), timed; a short ``PaintMindTrainer.train()`` with ``save()``,
      ``resume('auto')`` into a second trainer and one ``evaluate()``;
-  8. a ``torch.profiler`` window over one unguided ``generate`` and one over
-     one training microbatch: the ten device operations with the most time,
-     and the device's busy share of each window (report only);
+     then stage-1 (VQGAN) training at vit-s-vqgan width from the shipped
+     weights: one microbatch's G loss and gradients with the kernels and
+     with the plain versions, five timed updates of
+     ``make_vqgan_train_step`` (share_forward, two microbatches, EMA) with
+     their launch counts and peak memory, and a ``VQGANTrainer.train()``
+     with ``save()``, ``resume('auto')`` and one ``evaluate()``;
+  8. ``torch.profiler`` windows over one unguided ``generate``, one stage-2
+     training microbatch and one stage-1 microbatch: the ten device
+     operations with the most time, and the device's busy share of each
+     window (report only);
   9. one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +83,7 @@ from PIL import Image
 
 import paintmind_tpu_torch as pt
 from paintmind_tpu_torch.models import quantize as tq
+from paintmind_tpu_torch.models import vqmodel as tvm
 from paintmind_tpu_torch.models.pipeline import (
     _transformer_logits, ids_to_tokens, pipeline_loss)
 from paintmind_tpu_torch.ops import _build
@@ -80,7 +92,9 @@ from paintmind_tpu_torch.ops import sampling as sm
 from paintmind_tpu_torch.ops import vq_lookup as vq
 from paintmind_tpu_torch.serving import (GenerateRequest, GenerationEngine,
                                          make_server)
-from paintmind_tpu_torch.train.steps import make_pipeline_train_step
+from paintmind_tpu_torch.train.steps import (make_pipeline_train_step,
+                                             make_vqgan_train_step,
+                                             vqgan_g_loss)
 from paintmind_tpu_torch.utils.checkpoint import load_flat
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -170,10 +184,24 @@ def mean_rel(got, ref):
     return ((got - ref).abs().mean() / ref.abs().mean()).item()
 
 
+# (label, B, N, M, H, D, timed): the main path's shapes at D = 64, the
+# other head dims the kernels take (D = 128 compiled, D = 32 zero-padded to
+# 64 by the wrapper), and ragged edges at each
+ATTN_CASES = (('stage-2 self', 8, 1024, 1024, 16, 64, True),
+              ('stage-2 cross', 8, 1024, 77, 16, 64, True),
+              ('vqgan self', 8, 1024, 1024, 8, 64, True),
+              ('vqgan self', 8, 1024, 1024, 8, 128, True),
+              ('vqgan self', 8, 1024, 1024, 8, 32, False),
+              ('ragged', 2, 200, 77, 3, 64, False),
+              ('ragged', 2, 200, 77, 3, 128, False),
+              ('ragged', 2, 200, 77, 3, 32, False))
+
+
 def check_k1(g):
     """K1 against ``flash_attention_plain`` at stage-2 self (H = 16,
     M = 1024), cross (M = 77) and VQGAN (H = 8) attention at B = 8 and a
-    ragged case (B = 2, N = 200, M = 77, H = 3), fp32 and bf16.  Gates: fp32
+    ragged case (B = 2, N = 200, M = 77, H = 3), fp32 and bf16, at head dim
+    64 and, for the VQGAN and ragged shapes, at 128 and 32 (``ATTN_CASES``).  Gates: fp32
     max abs <= 1e-4; bf16 mean abs <= 5e-3 (the kernel rounds the
     unnormalised p to bf16 and divides by the fp32 sum afterwards, the plain
     version rounds the normalised probabilities: measured 3e-4 at most, one
@@ -184,14 +212,10 @@ def check_k1(g):
     <= 1e-3 in bf16 (measured 1e-6), <= 1e-5 in fp32.  Times every shape;
     the result line carries the main path's most frequent call, stage-2
     self-attention in bf16."""
-    scale = 64 ** -0.5
     entry = None
-    for label, b, n, m, h in (('stage-2 self', 8, 1024, 1024, 16),
-                              ('stage-2 cross', 8, 1024, 77, 16),
-                              ('vqgan self', 8, 1024, 1024, 8),
-                              ('ragged', 2, 200, 77, 3)):
+    for label, b, n, m, h, d, timed in ATTN_CASES:
+        scale = d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
-            d = 64
             q = torch.randn(b, n, h, d, device='cuda', generator=g).to(dtype)
             k = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
             v = torch.randn(b, m, h, d, device='cuda', generator=g).to(dtype)
@@ -222,7 +246,7 @@ def check_k1(g):
                     f'{str(dtype)[6:]}: max_abs_err={max_err:.3e} '
                     f'mean_abs_err={mean_err:.3e}{tiled} '
                     f'lse_max_abs_err={lse_err:.3e}')
-            if label != 'ragged':
+            if timed:
                 ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
                 plain_ms = time_ms(
                     lambda: fa.flash_attention_plain(q, k, v, scale), 5)
@@ -257,16 +281,15 @@ def check_k4(g):
     shares the kernel's lse: <= 1e-4 (measured 4e-6).
     ``torch.autograd.grad`` through ``flash_attention`` must give the bits
     of a direct K4 call, and a second direct call the same bits again.
-    Times both training shapes; the result line carries the main path's
-    most frequent call, stage-2 self-attention in bf16, beside the backward
-    of ``F.scaled_dot_product_attention`` on a retained graph."""
-    scale = 64 ** -0.5
+    Times the training shapes (``ATTN_CASES``: stage-2 and VQGAN at head dim
+    64, VQGAN at 128; 32 and the ragged cases checked only); the result line
+    carries the stage-2 path's most frequent call, stage-2 self-attention in
+    bf16, beside the backward of ``F.scaled_dot_product_attention`` on a
+    retained graph."""
     entry = None
-    for label, b, n, m, h in (('stage-2 self', 8, 1024, 1024, 16),
-                              ('stage-2 cross', 8, 1024, 77, 16),
-                              ('ragged', 2, 200, 77, 3)):
+    for label, b, n, m, h, d, timed in ATTN_CASES:
+        scale = d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
-            d = 64
             q, k, v, go = (torch.randn(b, rows, h, d, device='cuda',
                                        generator=g).to(dtype)
                            for rows in (n, m, m, n))
@@ -300,7 +323,7 @@ def check_k4(g):
             line = (f'K4 {label} B={b} N={n} M={m} H={h} D={d} {str(dtype)[6:]}: '
                     f'mean_rel_err dq={errs[0]:.3e} dk={errs[1]:.3e} '
                     f'dv={errs[2]:.3e} max_abs_err={max_abs:.3e}{tiled}')
-            if label != 'ragged':
+            if timed:
                 ms = time_ms(lambda: fa.flash_attention_backward(
                     q, k, v, go, scale, lse), 10)
                 plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(
@@ -353,8 +376,12 @@ def check_k2(g):
     of the serving engine at B = 1: the codebook split over 16 blocks per
     token tile) and at T = 1; on a codebook whose upper half repeats its
     lower half every index lies in the lower half (exact ties go to the
-    lowest index through every merge and split).  Two launches bit-equal
-    everywhere.  Times T = 8192 and T = 1024."""
+    lowest index through every merge and split).  Other code dims (C3): 8
+    (compiled), 16 (compiled), 12 (zero-padded to 16), 48 (padded to 64, one
+    chunk of the chunked variant) and 100 (padded to 128, two chunks), each
+    on a seeded 8192-row codebook at T = 8192 and T = 1000 (ragged), the
+    same gate.  Two launches bit-equal everywhere.  Times T = 8192 at code
+    dims 32 and 8, and T = 1024."""
     codebook = load_flat(ASSET)['quantize/codebook'].float().cuda()
     e = tq.l2norm(codebook).contiguous()
     z = tq.l2norm(torch.randn(8 * 1024, 32, device='cuda', generator=g))
@@ -375,6 +402,20 @@ def check_k2(g):
               'higher index')
         notes.append(f'{what}: all in the lower half, {d} differ, gap {gap:.1e}')
     log('K2 ' + '; '.join(notes))
+    notes = []
+    for dim in (8, 16, 12, 48, 100):
+        ed = tq.l2norm(torch.randn(8192, dim, device='cuda', generator=g))
+        zd = tq.l2norm(torch.randn(8 * 1024, dim, device='cuda', generator=g))
+        for what, zz in ((f'D={dim} T=8192', zd), (f'D={dim} T=1000', zd[:1000])):
+            _, d, gap = k2_compare(zz, ed, what)
+            notes.append(f'{what} (kernel dim {vq.kernel_code_dim(dim)}): '
+                         f'{d} differ, gap {gap:.1e}')
+        if dim == 8:
+            ms8 = time_ms(lambda: vq.fused_nearest_codes(zd, ed), 50)
+            bms8, _ = bound((2 * 8192 * 8) * 4 + 8192 * 4, 2 * 8192 * 8192 * 8,
+                            torch.float32)
+            notes.append(f'D=8 T=8192 ms={ms8:.4f} bound_ms={bms8:.4f}')
+    log('K2 code dims: ' + '; '.join(notes) + f'; {CARD}')
     t, c, d = z.shape[0], e.shape[0], z.shape[1]
     ms = time_ms(lambda: vq.fused_nearest_codes(z, e), 50)
     plain_ms = time_ms(lambda: vq.nearest_codes_plain(z, e), 20)
@@ -1250,6 +1291,254 @@ def training(totals):
     return pipe
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: a model of other head and code dims (C3)
+# ---------------------------------------------------------------------------
+
+TINY_VQ = {
+    'n_embed': 512, 'embed_dim': 8, 'beta': 0.25,
+    'enc': {'image_size': 64, 'patch_size': 8, 'dim': 64, 'depth': 2,
+            'num_head': 4, 'mlp_dim': 128, 'in_channels': 3, 'dim_head': 16,
+            'dropout': 0.0},
+    'dec': {'image_size': 64, 'patch_size': 8, 'dim': 64, 'depth': 2,
+            'num_head': 4, 'mlp_dim': 128, 'out_channels': 3, 'dim_head': 16,
+            'dropout': 0.0},
+}
+TINY_PIPE = {'stage1': 'smoke-tiny-vqgan', 't5': 't5-l', 'dim': 64,
+             'dim_head': 16, 'mlp_dim': 128, 'num_head': 4, 'depth': 2,
+             'dropout': 0.0}
+
+
+def tiny_pipeline(totals):
+    """A registered model whose head dim (16) and code dim (8) are not the
+    shipped ones, on the card through the kernels: K1 and K4 take head dim
+    16 zero-padded to 64, K2 code dim 8 (compiled).  A seeded fp32
+    ``generate`` (B = 4, 4 steps, top-k 5) and ``reconstruct`` (B = 4),
+    launches as the path needs them; ``reconstruct`` against the plain
+    versions: ids agree >= 0.999 and MAE <= 1e-3 (fp32, as phase 4); the
+    generated images finite, in [-1, 1]; one B = 4 training microbatch of
+    ``pipeline_loss`` with ``backward()`` launches K4 per attention."""
+    pt.register_version('smoke-tiny-vqgan', TINY_VQ)
+    pt.register_version('smoke-tiny-pipeline', TINY_PIPE)
+    pipe = pt.create_model('pipeline', 'smoke-tiny-pipeline', pretrained=False,
+                           text_encoder=None, seed=4)
+    cfg = pipe.config
+    g = torch.Generator(device='cuda').manual_seed(4)
+    ctx = torch.randn(4, 77, cfg.t5_dim, device='cuda', generator=g)
+    steps, depth, dec = 4, cfg.depth, cfg.vqc.dec.depth
+    imgs, _ = drive(lambda: pipe.generate(text=ctx, timesteps=steps, topk=5,
+                                          decode_steps='final', generator=g)[-1],
+                    {'K1': depth * 2 * steps + dec, 'K3': steps}, totals,
+                    'tiny pipeline (dim_head 16, embed_dim 8) generate B=4 4 steps')
+    check(imgs.shape == (4, 64, 64, 3) and bool(torch.isfinite(imgs).all())
+          and float(imgs.abs().max()) <= 1.0, f'tiny generate {imgs.shape}')
+    x = seeded_images(4, 64, 6)
+    enc = cfg.vqc.enc.depth
+    rec, _ = drive(lambda: pipe.vqgan.reconstruct(x),
+                   {'K1': enc + dec, 'K2': 1}, totals,
+                   'tiny pipeline reconstruct B=4 fp32')
+    plain = pipe.vqgan.reconstruct(x, backend='plain', vq_backend='plain')
+    ids = pipe.vqgan.encode(x)[2]
+    plain_ids = pipe.vqgan.encode(x, backend='plain', vq_backend='plain')[2]
+    mae = (rec - plain).abs().mean().item()
+    agree = (ids == plain_ids).float().mean().item()
+    check(agree >= 0.999 and mae <= 1e-3,
+          f'tiny reconstruct kernel vs plain: ids agree {agree}, MAE {mae}')
+    trainable = pipe.trainable_parameters()
+    for p in trainable:
+        p.requires_grad_(True)
+    noise = torch.rand(4, cfg.num_tokens, device='cuda', generator=g)
+    drive(lambda: pipeline_loss(pipe, x, ctx, 0.5, noise=noise).backward(),
+          {'K1': enc + 2 * depth, 'K2': 1, 'K4': 2 * depth}, totals,
+          'tiny pipeline train microbatch B=4 forward+backward')
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in trainable), 'tiny pipeline: a gradient is missing')
+    log(f'tiny pipeline: reconstruct kernel vs plain MAE={mae:.3e}, ids agree '
+        f'{agree:.5f}; head dim {cfg.dim_head} runs the head-dim-'
+        f'{fa.kernel_head_dim(cfg.dim_head)} kernels, code dim '
+        f'{cfg.vqc.embed_dim} the code-dim-{vq.kernel_code_dim(cfg.vqc.embed_dim)} '
+        f'kernel')
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: stage-1 (VQGAN) training
+# ---------------------------------------------------------------------------
+
+def stage1_g_loss_and_grads(vqgan, d, lpips, img, dtype, backend=None,
+                            vq_backend='auto'):
+    """One microbatch's G loss and the VQGAN's gradients, D's state kept
+    (its training-mode BatchNorm would move at each call)."""
+    saved = {k: v.clone() for k, v in d.state_dict().items()}
+    vqgan.zero_grad(set_to_none=True)
+    z, cb_loss, _ = tvm.encode(vqgan, img.to(dtype), backend=backend,
+                               vq_backend=vq_backend)
+    rec = tvm.decode(vqgan, z, backend=backend).float()
+    d.requires_grad_(False)
+    total, _ = vqgan_g_loss(rec, cb_loss, d, img, lpips)
+    total.backward()
+    d.requires_grad_(True)
+    d.load_state_dict(saved)
+    torch.cuda.synchronize()
+    return total.item()
+
+
+def stage1_training(totals):
+    """Stage-1 VQGAN training at ``vit-s-vqgan`` width (256² images, 1024
+    tokens, 8 + 8 layers of dim 512, 8 heads of 64, an 8192 x 32 codebook)
+    from the shipped weights, fp32 master weights and bf16 compute, the
+    reference's discriminator (ndf 64, 3 layers, seeded), LPIPS 'random'
+    (the repository has no converted VGG weights), B = 8 microbatches.
+
+      * one microbatch's G loss and generator gradients through the kernels
+        and through the plain attention and lookup, both in bf16, beside the
+        plain path in fp32 as the yardstick.  Gates: the loss within 2e-3 of
+        either; each watched gradient (the first and last layers' to_q / to_k
+        / to_v of each stack, the codebook, prev_quant, post_quant, the
+        decoder's projection) no farther from fp32 than 1.25 x the plain bf16
+        path's distance + 0.01, below 0.2 mean relative, and within 0.15 of the
+        plain bf16 path: bf16 activations through 8 layers each way leave
+        either bf16 path some percent from fp32, and the gate is that the
+        kernels are no farther from it than the plain path;
+      * five updates of ``make_vqgan_train_step`` (share_forward,
+        ``grad_accum=2``, EMA 0.999), timed (CUDA events) as the median
+        after the first, each launching K1 and K4 once per layer and
+        microbatch (32 each) and K2 once per encode (2); peak device memory;
+      * a ``VQGANTrainer.train()`` of three updates with ``save()``,
+        ``resume('auto')`` into a second trainer (whose next update on one
+        batch must give the first trainer's loss, bit for bit) and one
+        ``evaluate()`` whose PSNR is finite."""
+    from paintmind_tpu_torch.models import discriminator as tdisc
+    from paintmind_tpu_torch.models import lpips as tlpips
+    vqgan = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=ASSET)
+    cfg = vqgan.config
+    enc, dec = cfg.enc.depth, cfg.dec.depth
+    for p in vqgan.parameters():
+        p.requires_grad_(True)
+    log(f'stage-1 training: vit-s-vqgan, {vqgan.num_params / 1e6:.1f} M '
+        f'parameters (fp32 master weights, bf16 compute) from the shipped '
+        f'weights; head dim {cfg.enc.dim_head}, codebook {cfg.n_embed} x '
+        f'{cfg.embed_dim}')
+    lpips = tlpips.LPIPS(seed=0)
+    d = tdisc.Discriminator(seed=1)
+    imgs16 = seeded_images(16, 256, 11)
+    img = imgs16[:8]
+
+    named = dict(vqgan.named_parameters())
+    watched = [f'{s}.layers.{i}.attn1.{w}.weight'
+               for s in ('encoder', 'decoder') for i in (0, 7)
+               for w in ('to_q', 'to_k', 'to_v')]
+    watched += ['quantize.codebook', 'prev_quant.weight', 'post_quant.weight',
+                'decoder.proj.weight']
+
+    def grads():
+        return {n: named[n].grad.clone() for n in watched}
+
+    bf = torch.bfloat16
+    stage1_g_loss_and_grads(vqgan, d, lpips, img, bf)  # warm-up
+    loss_k, _ = drive(lambda: stage1_g_loss_and_grads(vqgan, d, lpips, img, bf),
+                      {'K1': enc + dec, 'K2': 1, 'K4': enc + dec}, totals,
+                      'stage-1 microbatch B=8 G loss + backward')
+    grads_k = grads()
+    unused = dict.fromkeys(totals, 0)
+    plain = dict(backend='plain', vq_backend='plain')
+    loss_p, _ = drive(lambda: stage1_g_loss_and_grads(
+        vqgan, d, lpips, img, bf, **plain), {}, unused,
+        "stage-1 microbatch B=8, backend='plain'")
+    grads_p = grads()
+    loss_f = stage1_g_loss_and_grads(vqgan, d, lpips, img, torch.float32,
+                                     **plain)
+    grads_f = grads()
+    log(f'stage-1 microbatch G loss: kernels {loss_k:.5f}, plain {loss_p:.5f}, '
+        f'plain fp32 {loss_f:.5f}')
+    log('stage-1 gradient mean rel err (kernels bf16 vs fp32 / plain bf16 vs '
+        'fp32 / kernels vs plain, both bf16):')
+    for n in watched:
+        e_k, e_p, e_kp = (mean_rel(grads_k[n], grads_f[n]),
+                          mean_rel(grads_p[n], grads_f[n]),
+                          mean_rel(grads_k[n], grads_p[n]))
+        log(f'  {n:34s} {e_k:.3e} / {e_p:.3e} / {e_kp:.3e}')
+        check(e_k <= 1.25 * e_p + 0.01 and e_k <= 0.2 and e_kp <= 0.15,
+              f'stage-1 gradient of {n}: rel err kernels {e_k}, plain {e_p}, '
+              f'between them {e_kp}')
+    check(abs(loss_k - loss_f) <= 2e-3 and abs(loss_k - loss_p) <= 2e-3,
+          f'stage-1 G loss kernels {loss_k}, plain {loss_p}, fp32 {loss_f}')
+    del grads_k, grads_p, grads_f
+    vqgan.zero_grad(set_to_none=True)
+
+    # five updates of the step function, two microbatches of 8 each
+    def tx(params):
+        return pt.optim.adam(params, 1e-4, (0.9, 0.99), 1.0)
+
+    step = make_vqgan_train_step(vqgan, tx, tx, lpips=lpips, grad_accum=2,
+                                 compute_dtype=torch.bfloat16, ema_decay=0.999,
+                                 seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def update():
+            start.record()
+            m = step(imgs16)
+            end.record()
+            return m
+
+        m, _ = drive(update, {'K1': 2 * (enc + dec), 'K2': 2,
+                              'K4': 2 * (enc + dec)}, totals,
+                     f'stage-1 update {i} B=16 grad_accum=2')
+        losses.append({k: v.item() for k, v in m.items()})
+        times.append(start.elapsed_time(end) / 1e3)
+    check(all(math.isfinite(v) for m in losses for v in m.values()),
+          f'stage-1 metrics {losses}')
+    sec = float(np.median(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log('stage-1 updates (Adam 1e-4, share_forward, 2 microbatches of B=8, '
+        'EMA): ' + '; '.join(
+            f'loss {m["loss"]:.4f} rec {m["rec loss"]:.4f} per '
+            f'{m["per loss"]:.4f} g {m["g loss"]:.4f} d {m["d loss"]:.4f}'
+            for m in losses))
+    log(f'stage-1 update: {sec:.4f} s per update = {16 / sec:.2f} images/s '
+        f'(median of 4 CUDA-event timed updates after the first), peak device '
+        f'memory {peak:.2f} GiB; {CARD}')
+    del step
+
+    # the trainer: three updates through the DataLoader, save, resume into
+    # a second trainer, evaluate
+    with tempfile.TemporaryDirectory() as folder:
+        def trainer_for(model):
+            return pt.VQGANTrainer(
+                model, SeededDataset(30), num_epoch=1, valid_size=6, lr=1e-4,
+                warmup_steps=2, batch_size=8, num_workers=4, save_every=100,
+                sample_every=100, result_folder=folder,
+                log_dir=os.path.join(folder, 'log'),
+                perceptual_weights='random', ema_decay=0.999, seed=5)
+        first = trainer_for(vqgan)
+        drive(first.train, {'K1': 3 * (enc + dec), 'K2': 3,
+                            'K4': 3 * (enc + dec)}, totals,
+              'VQGANTrainer.train() 3 updates B=8 + save')
+        check(first.steps == 3 and math.isfinite(first.log['loss']),
+              f'VQGANTrainer steps {first.steps}')
+        second_vq = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=ASSET)
+        second = trainer_for(second_vq).resume('auto')
+        batch = next(iter(first.train_dl))
+        want = first.train_step(batch)['loss'].item()
+        got = second.train_step(batch)['loss'].item()
+        check(second.steps == 4 and got == want,
+              f"resumed VQGANTrainer: next loss {got}, the first trainer's {want}")
+        del second, second_vq
+        drive(first.evaluate, {'K1': enc + dec, 'K2': 1}, totals,
+              'VQGANTrainer.evaluate() B=6 fp32')
+        check(math.isfinite(first.log['val psnr']),
+              f"evaluate PSNR {first.log['val psnr']}")
+        log(f"VQGANTrainer: loss after 3 updates {first.log['loss']:.4f}; "
+            f'resumed trainer next loss {got:.6f} == {want:.6f}; evaluate: '
+            f"PSNR {first.log['val psnr']:.3f} dB, codebook usage "
+            f"{first.log['codebook usage']:.4f}, perplexity "
+            f"{first.log['codebook perplexity']:.1f}")
+    return vqgan, d, lpips, imgs16[:8]
+
+
 # the bf16 attention kernels, which must run their products on the tensor cores
 TENSOR_CORE_KERNELS = {'flash_attention': ['attn_fwd_wgmma'],
                        'flash_attention_bwd': ['attn_bwd_dq_wgmma',
@@ -1361,10 +1650,12 @@ def profile_window(fn, what):
         log(f'  {calls:6d} {ms:10.3f}  {name[:200]}')
 
 
-def profiles(serving, trained):
+def profiles(serving, trained, stage1):
     """Where the time of one unguided ``generate`` (the stage-2 phase's
-    bf16 pipeline) and of one training microbatch (the training phase's
-    pipeline) goes on the device."""
+    bf16 pipeline), of one stage-2 training microbatch (the training phase's
+    pipeline) and of one stage-1 microbatch's G loss and backward (the
+    stage-1 training phase's VQGAN, discriminator and LPIPS) goes on the
+    device."""
     cfg = serving.config
     g = torch.Generator(device='cuda').manual_seed(0)
     ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
@@ -1377,6 +1668,10 @@ def profiles(serving, trained):
     noise = torch.rand(8, cfg.num_tokens, device='cuda', generator=g)
     profile_window(lambda: loss_and_grads(trained, imgs, ctx, noise),
                    'train microbatch B=8 forward+backward')
+    vqgan, d, lpips, img = stage1
+    profile_window(lambda: stage1_g_loss_and_grads(vqgan, d, lpips, img,
+                                                   torch.bfloat16),
+                   'stage-1 microbatch B=8 G loss + backward (bf16)')
 
 
 # the libraries each kernel's check needs
@@ -1440,6 +1735,7 @@ def main():
     results = {name: phase(f'check {name}', fn, g) for name, fn in checks.items()}
     totals = {name: 0 for name in KERNEL_COUNTERS}
     phase('stage 1', stage1, totals)
+    phase('tiny pipeline', tiny_pipeline, totals)
     serving = phase('stage 2', stage2, totals)
     serving.to('cpu')  # out of the later phases' peak memory
     before = torch.cuda.memory_allocated()
@@ -1452,9 +1748,12 @@ def main():
         f'{held / 2**30:.3f} GiB, after clearing the cuBLAS workspaces '
         f'{(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB')
     trained = phase('training', training, totals)
+    trained.to('cpu')  # out of the stage-1 phase's peak memory
+    stage1_parts = phase('stage-1 training', stage1_training, totals)
     for name, n in totals.items():
         check(n > 0, f'{name} never launched on the main path')
-    phase('profiles', profiles, serving.to('cuda'), trained)
+    phase('profiles', profiles, serving.to('cuda'), trained.to('cuda'),
+          stage1_parts)
 
     meta = {
         'K1': ('flash_attention_fwd', 'cuda',

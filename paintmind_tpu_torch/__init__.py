@@ -8,11 +8,11 @@ caller asks for the CPU.  The package imports neither JAX nor
 
 from . import optim
 from .config import Config, register_version, ver2cfg
-from .factory import create_model
+from .factory import create_model, create_pipeline_for_train
 from .nn.attention import set_attention_backend
 from .reconstruct import reconstruction
-from .utils.trainer import PaintMindTrainer
+from .utils.trainer import PaintMindTrainer, VQGANTrainer
 
-__all__ = ['Config', 'PaintMindTrainer', 'create_model', 'optim',
-           'reconstruction', 'register_version', 'set_attention_backend',
-           'ver2cfg']
+__all__ = ['Config', 'PaintMindTrainer', 'VQGANTrainer', 'create_model',
+           'create_pipeline_for_train', 'optim', 'reconstruction',
+           'register_version', 'set_attention_backend', 'ver2cfg']

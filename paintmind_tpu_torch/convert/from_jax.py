@@ -27,6 +27,13 @@ have a layout of their own, bridged by ``load_tower_params`` /
     linear layer with a bias is two leaves ``<name>_w`` (in, out) and
     ``<name>_b``, one without (``conv1``) a bare kernel; LayerNorms are
     ``<name>/scale`` and ``<name>/bias``.
+
+The stage-1 training trees, a list per layer, are carried in by
+``load_discriminator_params`` (the PatchGAN's ``params`` and BatchNorm
+``stats``: ``<i>/conv/kernel`` HWIO, ``<i>/conv/bias``, ``<i>/bn/scale``,
+``<i>/bn/bias``, ``<i>/bn/mean``, ``<i>/bn/var``) and
+``load_lpips_params`` (``convs/<i>/kernel`` HWIO and ``/bias``,
+``lins/<i>/kernel`` (1, 1, C, 1)).  Torch convolutions are OIHW.
 """
 
 from __future__ import annotations
@@ -68,7 +75,13 @@ def load_jax_params(module, flat):
     """Copy a flat JAX parameter tree into ``module`` (in place, keeping
     the module's device and dtypes).  Every key of the tree must be
     consumed and every parameter of the module filled."""
-    sd = to_state_dict(flat)
+    return _load_strict(module, to_state_dict(flat))
+
+
+@torch.no_grad()
+def _load_strict(module, sd):
+    """Copy a state dict into ``module``'s own tensors: every key consumed,
+    every entry of the module filled, shapes equal."""
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     unexpected = sorted(set(sd) - set(own))
@@ -109,6 +122,62 @@ def to_flat(module):
     for key, by_layer in stacks.items():
         leaves[key] = torch.stack([by_layer[i] for i in range(len(by_layer))])
     return dict(to_numpy(k, v) for k, v in leaves.items())
+
+
+def flatten_tree(tree, prefix=''):
+    """A nested JAX tree (dicts and lists of arrays) or a flat dict ->
+    ``{'/'-joined key: CPU tensor}``."""
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        key = f'{prefix}{k}'
+        if isinstance(v, (dict, list, tuple)):
+            out.update(flatten_tree(v, key + SEP))
+        else:
+            key, out_v = to_tensor(key, v)
+            out[key] = out_v
+    return out
+
+
+def _hwio_to_oihw(kernel):
+    return kernel.permute(3, 2, 0, 1).contiguous()
+
+
+def load_discriminator_params(module, params, stats=None):
+    """The JAX package's discriminator ``params`` (and BatchNorm ``stats``,
+    when given) into a ``models.discriminator.Discriminator``, in place.
+    Without ``stats`` the module's running statistics are kept (the check
+    then covers the parameters only)."""
+    sd = {}
+    for key, v in flatten_tree(params).items():
+        i, mod, leaf = key.split(SEP)
+        if mod == 'conv':
+            sd[f'layers.{i}.conv.' + ('weight' if leaf == 'kernel' else 'bias')] = \
+                _hwio_to_oihw(v) if leaf == 'kernel' else v
+        else:
+            sd[f'layers.{i}.bn.' + ('weight' if leaf == 'scale' else 'bias')] = v
+    if stats is None:
+        sd.update({k: v for k, v in module.state_dict().items()
+                   if k.endswith(('running_mean', 'running_var'))})
+    else:
+        for key, v in flatten_tree(stats).items():
+            i, _, leaf = key.split(SEP)
+            sd[f'layers.{i}.bn.running_{leaf}'] = v
+    return _load_strict(module, sd)
+
+
+def load_lpips_params(module, tree):
+    """The JAX package's LPIPS tree (nested or flat) into a
+    ``models.lpips.LPIPS``, in place."""
+    sd = {}
+    for key, v in flatten_tree(tree).items():
+        group, i, leaf = key.split(SEP)
+        if group == 'lins':
+            sd[f'lins.{i}'] = v[0, 0, :, 0].contiguous()
+        else:
+            sd[f'convs.{i}.' + leaf.replace('kernel', 'weight')] = \
+                _hwio_to_oihw(v) if leaf == 'kernel' else v
+    return _load_strict(module, sd)
 
 
 def _tower_leaves(module):

@@ -1,17 +1,24 @@
 // Building blocks of the bf16 tensor-core attention kernels (sm_90a), shared
 // by flash_attention.cu (forward) and flash_attention_bwd.cu (backward).
 //
-// Both stream 64-row tiles of (rows, H, D = 64) bf16 operands through shared
+// Both stream 64-row tiles of (rows, H, D) bf16 operands through shared
 // memory with cp.async, multiply them with wgmma (one warpgroup of 4 warps
-// owns 64 rows) and keep every score tile in registers.
+// owns 64 rows) and keep every score tile in registers.  The kernels are
+// compiled for D = 64 and D = 128; the wrapper zero-pads other head dims up to
+// the next of the two (zero columns add nothing to q.k^T, and the padded
+// columns of the outputs are sliced off).
 //
-// Shared-memory tile: 64 rows of 128 bytes (64 bf16), each row cut into eight
-// 16-byte chunks; chunk c of row r lies at chunk c ^ (r & 7).  With the tile
-// at a multiple of 1024 bytes this is the 128-byte swizzle of a wgmma
+// Shared-memory sub-tile: 64 rows of 128 bytes (64 bf16), each row cut into
+// eight 16-byte chunks; chunk c of row r lies at chunk c ^ (r & 7).  With the
+// sub-tile at a multiple of 1024 bytes this is the 128-byte swizzle of a wgmma
 // descriptor; the 8 chunks of a row that cp.async writes, and the 8 rows of a
 // column of chunks that the tensor cores read, fall on 8 different bank
 // groups, where unswizzled 128-byte rows would put all 8 rows on the same
-// banks.
+// banks.  A 64-row tile of D columns is D / 64 such sub-tiles, one after the
+// other: sub-tile j holds columns 64 j .. 64 j + 63 (one swizzle atom is 128
+// bytes wide, so a 256-byte row of D = 128 is two atoms).  A product that runs
+// along D (S = Q.K^T) takes its 16-deep k-steps from sub-tile kk / 4; a
+// product whose output is D wide (O = P.V) is one m64n64 product per sub-tile.
 //
 // wgmma.m64nNk16 registers: warp w of the warpgroup owns rows 16 w .. 16 w +
 // 15, and within the warp, lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -31,10 +38,10 @@
 
 namespace attn {
 
-constexpr int D = 64;                         // head dim
+constexpr int SUB = 64;                       // columns of a sub-tile
 constexpr int TILE = 64;                      // rows of a shared-memory tile
-constexpr int ROW_BYTES = D * 2;              // one bf16 row
-constexpr int TILE_BYTES = TILE * ROW_BYTES;  // 8 KB
+constexpr int ROW_BYTES = SUB * 2;            // one bf16 row of a sub-tile
+constexpr int TILE_BYTES = TILE * ROW_BYTES;  // one sub-tile, 8 KB
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -79,15 +86,18 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One thread's share of the copies that bring 64-row tiles of a (rows, H, D)
-// bf16 operand of one (batch, head) into swizzled shared-memory tiles: eight
-// neighbouring threads copy one 128-byte row, and a thread's copies lie
-// THREADS / 8 rows apart, a multiple of 8, so they share one swizzled chunk
-// position.  What does not change from tile to tile is worked out once, here:
-// the copies of a tile are then an address step each.
-template <int THREADS>
+// bf16 operand of one (batch, head) into swizzled shared-memory tiles (D / 64
+// sub-tiles each): eight neighbouring threads copy one 128-byte row of a
+// sub-tile, and a thread's copies lie THREADS / 8 rows apart, a multiple of 8,
+// so they share one swizzled chunk position.  What does not change from tile
+// to tile is worked out once, here: the copies of a tile are then an address
+// step each.
+template <int THREADS, int D>
 struct TileCopier {
-  static constexpr int COPIES = TILE * 8 / THREADS;  // per tile and thread
+  static constexpr int NSUB = D / SUB;                // sub-tiles per tile
+  static constexpr int COPIES = TILE * 8 / THREADS;  // per sub-tile and thread
   static constexpr int ROW_STEP = THREADS / 8;       // rows between them
+  static_assert(D % SUB == 0, "D is a multiple of 64");
   static_assert((TILE * 8) % THREADS == 0 && ROW_STEP % 8 == 0, "whole, aligned rounds");
 
   const __nv_bfloat16* base;  // row 0 of the operand, at this thread's chunk
@@ -106,14 +116,19 @@ struct TileCopier {
     const __nv_bfloat16* src = base + (long long)(r0 + row) * tok;
     if (r0 + TILE <= n_rows) {
 #pragma unroll
-      for (int c = 0; c < COPIES; ++c)
-        cp_async_16(tile + off + c * ROW_STEP * ROW_BYTES, src + c * ROW_STEP * tok);
+      for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+        for (int c = 0; c < COPIES; ++c)
+          cp_async_16(tile + j * TILE_BYTES + off + c * ROW_STEP * ROW_BYTES,
+                      src + j * SUB + c * ROW_STEP * tok);
     } else {  // the ragged edge: zero-fill, and read nothing past the operand
 #pragma unroll
       for (int c = 0; c < COPIES; ++c) {
         const bool ok = r0 + row + c * ROW_STEP < n_rows;
-        cp_async_16(tile + off + c * ROW_STEP * ROW_BYTES, ok ? src + c * ROW_STEP * tok : base,
-                    ok);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+          cp_async_16(tile + j * TILE_BYTES + off + c * ROW_STEP * ROW_BYTES,
+                      ok ? src + j * SUB + c * ROW_STEP * tok : base, ok);
       }
     }
   }
@@ -182,6 +197,13 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t tile) {
 }
 constexpr uint64_t WGMMA_K_STEP = 32 >> 4;                // K-major: 16 elements along a row
 constexpr uint64_t WGMMA_ROW_STEP = 16 * ROW_BYTES >> 4;  // MN-major: 16 rows
+constexpr uint64_t WGMMA_SUB_STEP = TILE_BYTES >> 4;      // the next sub-tile
+
+// Descriptor offset of k-step kk (16 columns) of a K-major tile of D / 64
+// sub-tiles: four k-steps a sub-tile.
+__device__ __forceinline__ uint64_t k_step(int kk) {
+  return (kk >> 2) * WGMMA_SUB_STEP + (kk & 3) * WGMMA_K_STEP;
+}
 
 // Orders register writes (accumulators, A fragments) before the wgmmas that follow.
 __device__ __forceinline__ void wgmma_fence() {
@@ -274,9 +296,11 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], uint64_t desc_
 }
 
 // The warp's 16 x 64 accumulator, rounded to bf16, goes to rows row0 ..
-// row0 + 15 of a staging tile and from there to global rows g0 + row0 .. as
-// 16-byte stores (8 lanes write one 128-byte row); rows at or past n_rows are
-// not stored.  Only this warp touches these tile rows.
+// row0 + 15 of a staging sub-tile and from there to global rows g0 + row0 ..
+// as 16-byte stores (8 lanes write one 128-byte row); rows at or past n_rows
+// are not stored.  Only this warp touches these tile rows.  For D = 128 the
+// caller stores each 64-column half of its output through its own sub-tile,
+// with `base` moved by 64 columns.
 __device__ __forceinline__ void store_rows(unsigned char* tile, int row0,
                                            const float (&acc)[8][4], __nv_bfloat16* base,
                                            long long tok, int g0, int n_rows, int lane) {

@@ -5,7 +5,8 @@
 // l2-normalised rows, ties to the lowest index, without writing the
 // (T, C) score matrix to device memory.
 //
-// Bound on this card: the 2*T*C*32 fp32 operations (the operands are ~2 MB).
+// Bound on this card: the 2*T*C*dim fp32 operations (the operands are ~2 MB
+// at dim 32).
 // They stay on the fp32 CUDA cores: the result must equal fp32 argmax except
 // at score gaps under 1e-5, which one tensor-core pass (three decimal digits)
 // cannot give.  What limits FFMA on the CUDA cores is the shared-memory loads
@@ -15,8 +16,9 @@
 //     codes.  A thread holds 4 x 8 scores in registers: per 16-byte step in d
 //     it loads 4 + 8 float4 and issues 128 FFMA (1 : 10.7, where one token
 //     against one code at a time is 1 : 4).
-//   * Both tiles are row-major in shared memory with rows padded to 36 floats:
-//     row r starts at bank 4r mod 32, so the eight lanes of a warp that read
+//   * Both tiles are row-major in shared memory with rows padded to DZ + 4
+//     floats (36 at DZ = 32; DZ + 4 is 4 times an odd number): row r starts at
+//     bank 4r mod 32 (times that odd number), so the eight lanes of a warp that read
 //     eight consecutive code rows in one LDS.128 phase touch every bank once,
 //     and lanes that share a token or a code read one address (broadcast).  A
 //     thread's codes are cl, cl + 16, ... (cl its code lane): ascending.
@@ -38,9 +40,15 @@
 //     of the atomics, so the result is the same bits on every run and ties
 //     still go to the lower index.  With one split there is no scratch and no
 //     second kernel: the block writes the index itself.
+//   * The code dim is compiled for DZ = 8, 16 and 32 (the wrapper zero-pads
+//     other dims up to the next: zero columns change no score).  Above 32 the
+//     wrapper pads to a multiple of 64 and the kernel walks each codebook
+//     tile in chunks of DZ = 64 dims, its 4 x 8 sums carried from chunk to
+//     chunk; the block's token chunk then rides in the ring with the code
+//     chunk, so any code dim fits a fixed amount of shared memory.
 //
-// Layout: z (T, 32) fp32, e (C, 32) fp32, out (T,) int32, contiguous, 16-byte
-// aligned.
+// Layout: z (T, dim) fp32, e (C, dim) fp32, out (T,) int32, contiguous, 16-byte
+// aligned; dim is 8, 16, 32 or a multiple of 64.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,8 +63,6 @@ using attn::cp_async_commit;
 using attn::cp_async_wait;
 using attn::smem_u32;
 
-constexpr int DZ = 32;        // code dim
-constexpr int ROW = DZ + 4;   // padded shared-memory row, floats
 constexpr int BT = 64;        // tokens per block
 constexpr int BC = 128;       // codes per tile
 constexpr int TM = 4;         // tokens per thread
@@ -65,6 +71,12 @@ constexpr int CODE_LANES = BC / TN;   // 16: two warps of 8 code lanes
 constexpr int TOKEN_LANES = BT / TM;  // 16: eight warps of 4 token lanes, in pairs
 constexpr int THREADS = TOKEN_LANES * CODE_LANES;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Dynamic shared memory of one variant: the two ring stages of a code tile,
+// and the token tile (one, or one per stage when chunked); rows padded to
+// DZ + 4 floats.
+template <int DZ, bool CHUNKED>
+constexpr int SMEM_BYTES = (2 * BC + (CHUNKED ? 2 : 1) * BT) * (DZ + 4) * 4;
 
 // (value, index) a before (value, index) b: argmax's order, first index on a tie
 __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
@@ -80,11 +92,17 @@ __device__ __forceinline__ unsigned long long pack_key(float v, int i) {
   return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (uint32_t)i);
 }
 
-__global__ void __launch_bounds__(THREADS, 2)  // two blocks an SM: see codebook_splits
+// DZ: dims in shared memory at a time; CHUNKED: dim is a multiple of DZ and
+// each codebook tile is walked in dim / DZ chunks (else dim == DZ).
+template <int DZ, bool CHUNKED>
+__global__ void __launch_bounds__(THREADS, CHUNKED ? 1 : 2)  // two blocks an SM: see codebook_splits
 vq_lookup(const float* __restrict__ z, const float* __restrict__ e, int* __restrict__ out,
-          unsigned long long* __restrict__ keys, int T, int C, int tiles_per_split) {
-  __shared__ __align__(16) float zs[BT * ROW];
-  __shared__ __align__(16) float es[2][BC * ROW];
+          unsigned long long* __restrict__ keys, int T, int C, int dim, int tiles_per_split) {
+  constexpr int ROW = DZ + 4;   // padded shared-memory row, floats
+  constexpr int CH = DZ / 4;    // 16-byte chunks of a row
+  extern __shared__ __align__(16) float smem[];
+  float* const es = smem;                // [2][BC * ROW]
+  float* const zs = smem + 2 * BC * ROW;  // [CHUNKED ? 2 : 1][BT * ROW]
   __shared__ float red_v[BT];
   __shared__ int red_i[BT];
 
@@ -97,38 +115,49 @@ vq_lookup(const float* __restrict__ z, const float* __restrict__ e, int* __restr
   const int n_tiles = (C + BC - 1) / BC;
   const int tile_begin = blockIdx.y * tiles_per_split;
   const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
+  const int n_chunks = CHUNKED ? dim / DZ : 1;
+  const int n_steps = (tile_end - tile_begin) * n_chunks;
 
-  // A tile is BC * DZ contiguous floats of e: thread i copies the 16-byte
-  // chunks i, i + THREADS, ... to row (chunk >> 3), column chunk & 7.
-  const uint32_t tile_dst = ((tid >> 3) * ROW + (tid & 7) * 4) * 4;
-  constexpr int COPIES = BC * (DZ / 4) / THREADS;
-  constexpr int COPY_ROWS = THREADS / 8;  // rows between a thread's copies
-  auto copy_codes = [&](int stage, int tile) {
-    const uint32_t dst = smem_u32(es[stage]) + tile_dst;
-    const float* src = e + (long long)tile * (BC * DZ) + tid * 4;
+  // A code tile's chunk is BC rows of DZ floats: thread i copies the 16-byte
+  // pieces i, i + THREADS, ... to row (piece / CH), column piece % CH.
+  constexpr int COPIES = BC * CH / THREADS;
+  constexpr int COPY_ROWS = THREADS / CH;  // rows between a thread's copies
+  const int crow = tid / CH;
+  const uint32_t tile_dst = (crow * ROW + (tid % CH) * 4) * 4;
+  auto copy_codes = [&](int stage, int tile, int chunk) {
+    const uint32_t dst = smem_u32(es + stage * BC * ROW) + tile_dst;
+    const float* src = e + (long long)(tile * BC + crow) * dim + chunk * DZ + (tid % CH) * 4;
     if (tile * BC + BC <= C) {
 #pragma unroll
       for (int j = 0; j < COPIES; ++j)
-        cp_async_16(dst + j * COPY_ROWS * ROW * 4, src + j * THREADS * 4);
+        cp_async_16(dst + j * COPY_ROWS * ROW * 4, src + (long long)j * COPY_ROWS * dim);
     } else {  // the ragged last tile: zero-fill, and read nothing past e
 #pragma unroll
       for (int j = 0; j < COPIES; ++j) {
-        const bool ok = tile * BC + (tid >> 3) + j * COPY_ROWS < C;
-        cp_async_16(dst + j * COPY_ROWS * ROW * 4, ok ? src + j * THREADS * 4 : e, ok);
+        const bool ok = tile * BC + crow + j * COPY_ROWS < C;
+        cp_async_16(dst + j * COPY_ROWS * ROW * 4, ok ? src + (long long)j * COPY_ROWS * dim : e,
+                    ok);
       }
     }
   };
-
-  {
-    const uint32_t dst = smem_u32(zs);
-    for (int i = tid; i < BT * (DZ / 4); i += THREADS) {
-      const int row = i >> 3, chunk = i & 7;
+  auto copy_tokens = [&](float* tile, int chunk) {
+    const uint32_t dst = smem_u32(tile);
+    for (int i = tid; i < BT * CH; i += THREADS) {
+      const int row = i / CH, col = i % CH;
       const bool ok = t0 + row < T;
-      cp_async_16(dst + (row * ROW + chunk * 4) * 4,
-                  ok ? z + (long long)(t0 + row) * DZ + chunk * 4 : z, ok);
+      cp_async_16(dst + (row * ROW + col * 4) * 4,
+                  ok ? z + (long long)(t0 + row) * dim + chunk * DZ + col * 4 : z, ok);
     }
-  }
-  copy_codes(0, tile_begin);
+  };
+  // step s: codebook tile tile_begin + s / n_chunks, dims chunk s % n_chunks
+  auto copy_step = [&](int s) {
+    const int stage = s & 1;
+    copy_codes(stage, tile_begin + s / n_chunks, s % n_chunks);
+    if (CHUNKED) copy_tokens(zs + stage * BT * ROW, s % n_chunks);
+  };
+
+  if (!CHUNKED) copy_tokens(zs, 0);
+  copy_step(0);
   cp_async_commit();
 
   float best[TM];
@@ -139,20 +168,25 @@ vq_lookup(const float* __restrict__ z, const float* __restrict__ e, int* __restr
     arg[t] = tile_begin * BC;
   }
 
-  const float4* zp = reinterpret_cast<const float4*>(zs) + tl * (ROW / 4);
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int stage = (tile - tile_begin) & 1;
+  float acc[TM][TN];
+  for (int s = 0; s < n_steps; ++s) {
+    const int stage = s & 1;
+    const int tile = tile_begin + s / n_chunks;
+    const int chunk = s % n_chunks;
     cp_async_wait<0>();
-    __syncthreads();  // the tile has landed; every thread is done with the other stage
-    if (tile + 1 < tile_end) copy_codes(stage ^ 1, tile + 1);
+    __syncthreads();  // the step has landed; every thread is done with the other stage
+    if (s + 1 < n_steps) copy_step(s + 1);
     cp_async_commit();
 
-    float acc[TM][TN];
+    if (chunk == 0) {
 #pragma unroll
-    for (int t = 0; t < TM; ++t)
+      for (int t = 0; t < TM; ++t)
 #pragma unroll
-      for (int i = 0; i < TN; ++i) acc[t][i] = 0.f;
-    const float4* ep = reinterpret_cast<const float4*>(es[stage]) + cl * (ROW / 4);
+        for (int i = 0; i < TN; ++i) acc[t][i] = 0.f;
+    }
+    const float4* zp =
+        reinterpret_cast<const float4*>(zs + (CHUNKED ? stage * BT * ROW : 0)) + tl * (ROW / 4);
+    const float4* ep = reinterpret_cast<const float4*>(es + stage * BC * ROW) + cl * (ROW / 4);
 #pragma unroll
     for (int d4 = 0; d4 < DZ / 4; ++d4) {
       float4 zv[TM];
@@ -170,6 +204,7 @@ vq_lookup(const float* __restrict__ z, const float* __restrict__ e, int* __restr
         }
       }
     }
+    if (chunk != n_chunks - 1) continue;  // the tile's scores are not complete yet
 
     // Fold the tile into the running best in ascending code order: a strict
     // '>' keeps the lower index on equal scores.  (The tile's maximum first and
@@ -195,7 +230,6 @@ vq_lookup(const float* __restrict__ z, const float* __restrict__ e, int* __restr
       }
     }
   }
-
   // across the eight code lanes of the warp
 #pragma unroll
   for (int t = 0; t < TM; ++t) {
@@ -242,24 +276,49 @@ __global__ void unpack_keys(const unsigned long long* __restrict__ keys, int* __
   if (t < T) out[t] = (int)(0xFFFFFFFFu - (uint32_t)keys[t]);
 }
 
+
+template <int DZ, bool CHUNKED>
+int launch(const void* z, const void* e, void* out, unsigned long long* kp, int T, int C,
+           int dim, int tiles_per_split, dim3 grid, cudaStream_t st) {
+  // above the 48 KB a kernel gets unasked for the wider variants; the
+  // attribute is per device, so it is set at every launch
+  const cudaError_t attr = cudaFuncSetAttribute(
+      vq_lookup<DZ, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES<DZ, CHUNKED>);
+  if (attr != cudaSuccess) return (int)attr;
+  vq_lookup<DZ, CHUNKED><<<grid, THREADS, SMEM_BYTES<DZ, CHUNKED>, st>>>(
+      static_cast<const float*>(z), static_cast<const float*>(e), static_cast<int*>(out), kp, T,
+      C, dim, tiles_per_split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch.  splits == 1: keys is unused.
-// splits > 1: the codebook's tiles are divided over `splits` blocks per token
-// tile, and keys is (T,) 64-bit scratch that the caller has set to zero.
+// Returns the cudaError_t of the launch.  dim: 8, 16, 32 or a multiple of 64.
+// splits == 1: keys is unused.  splits > 1: the codebook's tiles are divided
+// over `splits` blocks per token tile, and keys is (T,) 64-bit scratch that
+// the caller has set to zero.
 extern "C" int vq_lookup_fwd(const void* z, const void* e, void* out, void* keys, int T, int C,
                              int dim, int splits, void* stream) {
   const int n_tiles = (C + BC - 1) / BC;
-  if (dim != DZ || T <= 0 || C <= 0 || splits < 1 || splits > n_tiles ||
+  if (T <= 0 || C <= 0 || dim <= 0 || splits < 1 || splits > n_tiles ||
       (splits > 1 && keys == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   const dim3 grid((T + BT - 1) / BT, (n_tiles + tiles_per_split - 1) / tiles_per_split);
   unsigned long long* kp = splits > 1 ? static_cast<unsigned long long*>(keys) : nullptr;
-  vq_lookup<<<grid, THREADS, 0, st>>>(static_cast<const float*>(z), static_cast<const float*>(e),
-                                      static_cast<int*>(out), kp, T, C, tiles_per_split);
-  int err = (int)cudaGetLastError();
+  int err;
+  if (dim == 8)
+    err = launch<8, false>(z, e, out, kp, T, C, dim, tiles_per_split, grid, st);
+  else if (dim == 16)
+    err = launch<16, false>(z, e, out, kp, T, C, dim, tiles_per_split, grid, st);
+  else if (dim == 32)
+    err = launch<32, false>(z, e, out, kp, T, C, dim, tiles_per_split, grid, st);
+  else if (dim % 64 == 0)
+    err = launch<64, true>(z, e, out, kp, T, C, dim, tiles_per_split, grid, st);
+  else
+    return (int)cudaErrorInvalidValue;
   if (err == 0 && kp != nullptr) {
     unpack_keys<<<(T + 255) / 256, 256, 0, st>>>(kp, static_cast<int*>(out), T);
     err = (int)cudaGetLastError();

@@ -36,3 +36,15 @@ def create_model(arch='pipeline', version='paintmindv1', pretrained=True,
     if checkpoint_path is not None:
         model.from_pretrained(checkpoint_path)
     return model
+
+
+def create_pipeline_for_train(version='paintmindv1', stage1_pretrained=True,
+                              stage1_checkpoint_path=None, **kwargs):
+    """A ``Pipeline`` to train (``paintmind_tpu.factory``'s): fp32 master
+    weights unless ``kwargs`` say otherwise, the stage-1 weights from
+    ``stage1_checkpoint_path`` (the port downloads nothing, so
+    ``stage1_pretrained=True`` needs it)."""
+    from .models.pipeline import Pipeline
+    return Pipeline(Config(ver2cfg[version]),
+                    stage1_pretrained=stage1_pretrained,
+                    stage1_checkpoint_path=stage1_checkpoint_path, **kwargs)

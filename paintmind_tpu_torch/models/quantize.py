@@ -42,15 +42,20 @@ class Quantizer(nn.Module):
                                                  device=device, dtype=dtype))
 
     def forward(self, z, beta=0.25, *, backend='auto'):
-        """Returns (z_q, commitment loss, int32 indices).  z_q keeps the
-        straight-through form ``z + (z_q - z)`` of the JAX package, so its
-        values round the same way."""
+        """Returns (z_q, commitment loss, int32 indices), as
+        ``paintmind_tpu.models.quantize.quantize``: the loss is
+        ``β·mean((sg(z_q) − z)²) + mean((z_q − sg(z))²)`` in fp32, so the
+        encoder gets β of the distance's gradient and the codebook all of
+        it; z_q is the straight-through ``z + sg(z_q − z)`` (its values
+        round as the JAX package's do, its gradient goes to z)."""
         z = l2norm(z)
         e = l2norm(self.codebook.to(z.dtype))
-        indices = nearest_codes(e, z, backend=backend)
+        indices = nearest_codes(e.detach(), z.detach(), backend=backend)
         z_q = e[indices.long()]
-        diff = torch.mean(torch.square(z_q.float() - z.float()))
-        return z + (z_q - z), (1.0 + beta) * diff, indices
+        zf, qf = z.float(), z_q.float()
+        loss = (beta * torch.mean(torch.square(qf.detach() - zf))
+                + torch.mean(torch.square(qf - zf.detach())))
+        return z + (z_q - z).detach(), loss, indices
 
     def decode_from_indice(self, indices):
         """Embed, then l2-normalise (reference quantize.py:40-44)."""

@@ -8,6 +8,13 @@
 
 Images are NHWC, as in the JAX package; the patch-embed convolution
 (kernel = stride = patch, no bias) is a reshape plus one linear layer.
+
+Two halves, as the JAX package's pure functions and its ``VQModel`` class:
+the functions ``encode``, ``decode`` and ``forward`` run with gradient (the
+stage-1 train step differentiates through them; dropout in training mode
+from an explicit generator, ``remat`` per block), and the ``VQModel``
+methods of the same names are their inference entry points, under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -114,12 +121,13 @@ class Encoder(nn.Module):
         self.norm_pre = LayerNorm(cfg.dim, **kw)
         self.layers = make_stack(cfg.depth, cfg.dim, dim_head=cfg.dim_head,
                                  mlp_dim=cfg.mlp_dim, num_head=cfg.num_head,
-                                 **kw)
+                                 dropout=cfg.dropout, **kw)
 
-    def forward(self, x, *, backend=None):
+    def forward(self, x, *, backend=None, generator=None, remat=False):
         x = self.patch_embed(patchify(x, self.cfg.patch_size))
         x = self.norm_pre(x + self.pos_embed.to(x.dtype))
-        return stack_apply(self.layers, x, backend=backend)
+        return stack_apply(self.layers, x, backend=backend,
+                           generator=generator, remat=remat)
 
 
 class Decoder(nn.Module):
@@ -131,16 +139,45 @@ class Decoder(nn.Module):
                                                   **kw))
         self.layers = make_stack(cfg.depth, cfg.dim, dim_head=cfg.dim_head,
                                  mlp_dim=cfg.mlp_dim, num_head=cfg.num_head,
-                                 **kw)
+                                 dropout=cfg.dropout, **kw)
         self.norm = LayerNorm(cfg.dim, **kw)
         self.proj = Linear(cfg.dim, cfg.patch_size ** 2 * cfg.channels, **kw)
 
-    def forward(self, x, *, backend=None):
+    def forward(self, x, *, backend=None, generator=None, remat=False):
         x = stack_apply(self.layers, x + self.pos_embed.to(x.dtype),
-                        backend=backend)
+                        backend=backend, generator=generator, remat=remat)
         x = self.proj(self.norm(x))
         c = self.cfg
         return unpatchify(x, c.patch_size, c.grid, c.channels)
+
+
+def encode(model, img, *, generator=None, backend=None, vq_backend='auto',
+           remat=False):
+    """(B, H, W, C) images in [-1, 1], in the compute type -> (z_q,
+    commitment loss, int32 ids), with gradient (``paintmind_tpu``'s
+    ``vm.encode``).  Dropout applies when ``model`` is in training mode,
+    with masks from ``generator``; ``remat`` recomputes each block in the
+    backward pass."""
+    x = model.encoder(img, backend=backend, generator=generator, remat=remat)
+    return model.quantize(model.prev_quant(x), model.config.beta,
+                          backend=vq_backend)
+
+
+def decode(model, z, *, generator=None, backend=None, remat=False):
+    """(B, L, embed_dim) codes -> images in [-1, 1], NHWC, with gradient
+    (``vm.decode``)."""
+    x = model.decoder(model.post_quant(z), backend=backend,
+                      generator=generator, remat=remat)
+    return torch.clamp(x, -1.0, 1.0)
+
+
+def forward(model, img, *, generator=None, backend=None, vq_backend='auto',
+            remat=False):
+    """-> (reconstruction, commitment loss), with gradient (``vm.forward``)."""
+    z, loss, _ = encode(model, img, generator=generator, backend=backend,
+                        vq_backend=vq_backend, remat=remat)
+    return decode(model, z, generator=generator, backend=backend,
+                  remat=remat), loss
 
 
 def _as_nhwc(img, device):
@@ -158,7 +195,10 @@ def _as_nhwc(img, device):
 class VQModel(nn.Module):
     """Stage-1 tokenizer with the JAX package's object API: ``encode``,
     ``decode``, ``forward``, ``reconstruct``, ``decode_from_indice``,
-    ``freeze``, ``from_pretrained``.  Always in eval mode."""
+    ``freeze``, ``from_pretrained``, ``save_pretrained``, ``num_params``.
+    Built in eval mode (no dropout), as the JAX package's methods run; the
+    module functions ``encode`` / ``decode`` / ``forward`` above are the
+    training path."""
 
     def __init__(self, config, *, seed=0, param_dtype=torch.float32,
                  compute_dtype=None, device='cuda'):
@@ -210,9 +250,8 @@ class VQModel(nn.Module):
     @torch.no_grad()
     def encode(self, img, *, backend=None, vq_backend='auto'):
         """(B, H, W, C) images in [-1, 1] -> (z_q, commitment loss, ids)."""
-        x = self.encoder(self._prep(img), backend=backend)
-        return self.quantize(self.prev_quant(x), self.config.beta,
-                             backend=vq_backend)
+        return encode(self, self._prep(img), backend=backend,
+                      vq_backend=vq_backend)
 
     @torch.no_grad()
     def decode(self, z, *, backend=None):
@@ -220,8 +259,7 @@ class VQModel(nn.Module):
         z = torch.as_tensor(z, device=self.device)
         if self.compute_dtype is not None:
             z = z.to(self.compute_dtype)
-        x = self.decoder(self.post_quant(z), backend=backend)
-        return torch.clamp(x, -1.0, 1.0)
+        return decode(self, z, backend=backend)
 
     @torch.no_grad()
     def forward(self, img, *, backend=None, vq_backend='auto'):
@@ -248,3 +286,15 @@ class VQModel(nn.Module):
         from ..utils.checkpoint import load_flat
         load_jax_params(self, load_flat(path))
         return self
+
+    def save_pretrained(self, path):
+        """Every parameter as a ``.npz`` in the JAX package's layout, which
+        ``paintmind_tpu``'s ``VQModel.from_pretrained`` reads."""
+        from ..convert.from_jax import to_flat
+        from ..utils.checkpoint import save_params
+        save_params(path, to_flat(self))
+        return path
+
+    @property
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())

@@ -7,9 +7,13 @@ classifier-free guidance).  The attention itself runs in the JAX layout
 
   * ``'flash'`` / ``'auto'``: the K1 wrapper (``ops/flash_attention``), which
     launches the kernel on a CUDA tensor and takes the plain version on a
-    CPU tensor.  Unlike the JAX package, ``'auto'`` needs no shape gate: K1
-    takes any N and M (it masks the ragged edges itself).  When a gradient
-    flows, the wrapper's ``autograd.Function`` runs kernel K4 backward.
+    CPU tensor.  When a gradient flows, the wrapper's ``autograd.Function``
+    runs kernel K4 backward.  ``'auto'`` follows the JAX package's dispatch
+    rule (``paintmind_tpu/nn/attention.py::_flash_ok``) on the head dim:
+    head dims up to 128 go to the kernels, larger ones to the plain math,
+    as JAX sends them to XLA.  Its other two conditions (N ≥ 128, M ≥ 16)
+    are about the Pallas kernel's padding; K1 masks ragged edges itself and
+    takes any N and M.
   * ``'plain'``: the plain PyTorch version on any device under ordinary
     autograd (the reference the kernel path is held against).
 
@@ -43,12 +47,17 @@ def get_attention_backend() -> str:
     return _backend
 
 
+# the JAX package's _flash_ok bound on the head dim: up to it the kernels
+FLASH_MAX_HEAD_DIM = 128
+
+
 def attention_core(q, k, v, scale, backend=None):
     """(B, N, H, D) x (B, M, H, D) -> (B, N, H, D)."""
     backend = backend or _backend
     if backend not in BACKENDS:
         raise ValueError(f'attention backend {backend!r} not in {BACKENDS}')
-    if backend == 'plain':
+    if backend == 'plain' or (backend == 'auto'
+                              and q.shape[-1] > FLASH_MAX_HEAD_DIM):
         return flash_attention_plain(q, k, v, scale)
     return flash_attention(q, k, v, scale)
 

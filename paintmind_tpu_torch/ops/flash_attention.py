@@ -5,7 +5,13 @@ Replaces ``paintmind_tpu/ops/flash_attention.py``: ``_flash_forward`` (Pallas
 kernel ``_attn_kernel``) and ``_flash_backward`` (``_bwd_kernel``), wired
 there as a ``custom_vjp`` and here as a ``torch.autograd.Function``.
 Non-causal ``softmax(q·kᵀ·scale)·v`` for self- and cross-attention, in the
-JAX layout (B, N, H, D) x (B, M, H, D).
+JAX layout (B, N, H, D) x (B, M, H, D).  The kernels are compiled for head
+dims 64 and 128 (``HEAD_DIMS``); the wrappers zero-pad any head dim up to
+128 to the next of them and slice the padding off the results, which is
+exact: zero columns add nothing to q·kᵀ, and the padded columns of o, dq,
+dk and dv are zero.  Head dims above 128 are not the kernels' (the JAX
+package's 'auto' sends them to XLA, ``nn/attention.attention_core`` to the
+plain version).
 
 What bounds them on an H100: operations, not bytes.  The forward does
 4·B·H·N·M·D, the backward's five products 10·B·H·N·M·D, and both keep the
@@ -55,8 +61,24 @@ launches = 0      # K1 launches so far; chip_smoke.py resets and reads it
 launches_bwd = 0  # K4 launches so far (one per backward call: its two kernels)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)  # the kernels' compiled head dims
 _fns = {}
+
+
+def kernel_head_dim(d):
+    """The compiled head dim that a head dim ``d`` is zero-padded to."""
+    for c in HEAD_DIMS:
+        if d <= c:
+            return c
+    raise ValueError(f'flash_attention kernel takes head dims up to '
+                     f'{HEAD_DIMS[-1]}, got {d}')
+
+
+def _pad_head(t, d):
+    """``t`` with zero columns up to head dim ``d`` (``t`` itself when it
+    has them already): what the wrappers hand the kernels."""
+    pad = d - t.shape[-1]
+    return t if pad == 0 else torch.nn.functional.pad(t, (0, pad))
 
 
 def _acc_dtype(t):
@@ -130,8 +152,9 @@ def flash_attention_tiled(q, k, v, scale):
     the unrounded p), P rounded to the operand type before P·V, the output
     scaled by 1/l, and lse = max·ln 2 + log l (natural log, (B, H, N))."""
     acc = _acc_dtype(q)
-    n, m = q.shape[1], k.shape[1]
-    qf, kf, vf = (_pad_tiles(t.to(acc)) for t in (q, k, v))
+    n, m, d_in = q.shape[1], k.shape[1], q.shape[-1]
+    dh = kernel_head_dim(d_in)
+    qf, kf, vf = (_pad_tiles(_pad_head(t.to(acc), dh)) for t in (q, k, v))
     b, n_pad, h, d = qf.shape
     cols = torch.arange(TILE, device=q.device)
     o = qf.new_zeros(b, h, n_pad, d)
@@ -147,7 +170,7 @@ def flash_attention_tiled(q, k, v, scale):
         l_run = l_run * corr + p.sum(dim=-1, keepdim=True)
         o = o * corr + torch.einsum('bhnm,bmhd->bhnd', _rounded(p, q.dtype), vs)
         m_run = m_new
-    out = (o * (1.0 / l_run)).permute(0, 2, 1, 3)[:, :n].to(q.dtype)
+    out = (o * (1.0 / l_run)).permute(0, 2, 1, 3)[:, :n, :, :d_in].to(q.dtype)
     lse = (m_run * _LN2 + torch.log(l_run))[:, :, :n, 0].float()
     return out.contiguous(), lse.contiguous()
 
@@ -160,10 +183,13 @@ def flash_attention_backward_tiled(q, k, v, g, scale, lse):
     δ = rowsum(P∘dP) in fp32, a second that forms dS in fp32 from the same
     P and dP, and P and dS rounded to the operand type before dv = Pᵀ·g,
     dq = dS·k and dk = dSᵀ·q.  (The dk/dv kernel sums over query tiles in
-    order; here the whole padded query range is one product.)"""
+    order; here the whole padded query range is one product.)  Head dims
+    are zero-padded to the compiled one, as by the wrapper."""
     acc = _acc_dtype(q)
-    n, m = q.shape[1], k.shape[1]
-    qf, kf, vf, gf = (_pad_tiles(t.to(acc)) for t in (q, k, v, g))
+    n, m, d_in = q.shape[1], k.shape[1], q.shape[-1]
+    dh = kernel_head_dim(d_in)
+    qf, kf, vf, gf = (_pad_tiles(_pad_head(t.to(acc), dh))
+                      for t in (q, k, v, g))
     lse2 = _pad_tiles(lse.to(acc), dim=2)[..., None] * _LOG2E
     cols = torch.arange(TILE, device=q.device)
 
@@ -185,8 +211,8 @@ def flash_attention_backward_tiled(q, k, v, g, scale, lse):
         dk[:, k0:k0 + TILE] = torch.einsum('bhnm,bnhd->bmhd', ds, qf)
         dv[:, k0:k0 + TILE] = torch.einsum('bhnm,bnhd->bmhd',
                                            _rounded(p, q.dtype), gf)
-    return (dq[:, :n].to(q.dtype), dk[:, :m].to(k.dtype),
-            dv[:, :m].to(v.dtype))
+    return (dq[:, :n, :, :d_in].to(q.dtype), dk[:, :m, :, :d_in].to(k.dtype),
+            dv[:, :m, :, :d_in].to(v.dtype))
 
 
 def _kernel(name):
@@ -212,9 +238,7 @@ def _check_operands(q, k, v, scale):
                          f'got {scale}')
     b, n, h, d = q.shape
     m = k.shape[1]
-    if d != HEAD_DIM:
-        raise ValueError(f'flash_attention kernel takes head dim {HEAD_DIM}, '
-                         f'got {d}')
+    kernel_head_dim(d)  # raises above the largest compiled head dim
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f'flash_attention kernel takes fp32 or bf16 operands '
                         f'of one type, got {q.dtype}, {k.dtype}, {v.dtype}')
@@ -231,9 +255,12 @@ def _check_operands(q, k, v, scale):
 
 
 def _launch_forward(q, k, v, scale, with_lse):
-    """K1 on CUDA operands -> (o, lse or None)."""
+    """K1 on CUDA operands -> (o, lse or None); head dims below a compiled
+    one are zero-padded to it (see the module's docstring)."""
     _check_operands(q, k, v, scale)
-    b, n, h, d = q.shape
+    b, n, h, d_in = q.shape
+    d = kernel_head_dim(d_in)
+    q, k, v = (_pad_head(t, d) for t in (q, k, v))
     global launches
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, n, device=q.device, dtype=torch.float32)
@@ -247,7 +274,7 @@ def _launch_forward(q, k, v, scale, with_lse):
                              _DTYPES[q.dtype], stream)
     _build.check(err, 'flash_attention')
     launches += 1
-    return out, lse
+    return (out if d == d_in else out[..., :d_in].contiguous()), lse
 
 
 def flash_attention_backward(q, k, v, g, scale, lse=None):
@@ -257,7 +284,7 @@ def flash_attention_backward(q, k, v, g, scale, lse=None):
     if q.device.type == 'cpu':
         return flash_attention_backward_plain(q, k, v, g, scale)
     _check_operands(q, k, v, scale)
-    b, n, h, d = q.shape
+    b, n, h, d_in = q.shape
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f'flash_attention backward: cotangent '
                          f'{tuple(g.shape)} {g.dtype} on {g.device} does not '
@@ -267,7 +294,8 @@ def flash_attention_backward(q, k, v, g, scale, lse=None):
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("flash_attention backward: lse is not the forward's "
                          '(B, H, N) fp32 log-sum-exp')
-    g = g.contiguous()
+    d = kernel_head_dim(d_in)
+    q, k, v, g = (_pad_head(t, d) for t in (q, k, v, g.contiguous()))
     if g.data_ptr() % 16:
         g = g.clone()  # a fresh allocation is aligned
     global launches_bwd
@@ -283,6 +311,8 @@ def flash_attention_backward(q, k, v, g, scale, lse=None):
                              _DTYPES[q.dtype], stream)
     _build.check(err, 'flash_attention backward')
     launches_bwd += 1
+    if d != d_in:
+        dq, dk, dv = (t[..., :d_in].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

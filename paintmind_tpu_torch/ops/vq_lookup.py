@@ -1,10 +1,13 @@
 """Fused codebook nearest-neighbour lookup (kernel K2) and its plain version.
 
 Replaces ``paintmind_tpu/ops/vq_lookup.py::_fused_nearest_codes`` (Pallas
-kernel ``_lookup_kernel``): for l2-normalised queries z (T, 32) and codebook
-rows e (C, 32), ``argmax_j z·e_j`` with ties to the lowest index.
+kernel ``_lookup_kernel``): for l2-normalised queries z (T, D) and codebook
+rows e (C, D), ``argmax_j z·e_j`` with ties to the lowest index.  The kernel
+is compiled for code dims 8, 16 and 32, and walks wider codes in chunks of
+64 (``kernel_code_dim``); the wrapper zero-pads any other dim up to the
+next, which changes no score.
 
-What bounds it on an H100: the 2*T*C*32 fp32 operations (4.3 GFLOP at
+What bounds it on an H100: the 2*T*C*D fp32 operations (4.3 GFLOP at
 T = 8 x 1024, C = 8192); the operands are only ~2 MB.  They run as FFMA on
 the CUDA cores (one tensor-core pass would pick other codes), and what holds
 FFMA back is the shared-memory loads beside it.  The kernel
@@ -32,11 +35,21 @@ from . import _build
 
 launches = 0  # kernel launches so far; chip_smoke.py resets and reads it
 
-CODE_DIM = 32
 BLOCK_TOKENS = 64   # tokens per block (BT in the kernel)
 TILE_CODES = 128    # codes per shared-memory tile (BC)
 THREAD_CODES = 8    # codes per thread (TN)
 _fn = None
+
+
+def kernel_code_dim(d):
+    """The code dim the kernel runs a code dim ``d`` at: 8, 16, 32, or the
+    next multiple of 64 (walked in chunks of 64)."""
+    if d < 1:
+        raise ValueError(f'code dim {d}')
+    for c in (8, 16, 32):
+        if d <= c:
+            return c
+    return -(-d // 64) * 64
 
 
 def nearest_codes_plain(z_norm, codebook_norm):
@@ -140,7 +153,8 @@ def _kernel():
 
 def fused_nearest_codes(z_norm, codebook_norm):
     """K2 on a CUDA tensor, the plain version on a CPU tensor.  z_norm:
-    (..., 32) fp32, codebook_norm: (C, 32) fp32 -> int32 (...,)."""
+    (..., D) fp32, codebook_norm: (C, D) fp32 -> int32 (...,), any D (the
+    kernel sees both zero-padded to ``kernel_code_dim(D)``)."""
     if z_norm.device.type == 'cpu':
         return nearest_codes_plain(z_norm, codebook_norm)
     if z_norm.device.type != 'cuda' or codebook_norm.device != z_norm.device:
@@ -149,18 +163,22 @@ def fused_nearest_codes(z_norm, codebook_norm):
     if z_norm.dtype != torch.float32 or codebook_norm.dtype != torch.float32:
         raise TypeError('fused_nearest_codes kernel takes fp32 operands, got '
                         f'{z_norm.dtype}, {codebook_norm.dtype}')
-    if z_norm.shape[-1] != CODE_DIM or codebook_norm.ndim != 2 or \
-            codebook_norm.shape[1] != CODE_DIM:
-        raise ValueError(f'fused_nearest_codes kernel takes code dim '
-                         f'{CODE_DIM}: z {tuple(z_norm.shape)}, '
-                         f'codebook {tuple(codebook_norm.shape)}')
+    if codebook_norm.ndim != 2 or codebook_norm.shape[1] != z_norm.shape[-1]:
+        raise ValueError(f'fused_nearest_codes: code dims of z '
+                         f'{tuple(z_norm.shape)} and codebook '
+                         f'{tuple(codebook_norm.shape)} differ')
     if not (z_norm.is_contiguous() and codebook_norm.is_contiguous()):
         raise ValueError('fused_nearest_codes kernel takes contiguous operands')
     if z_norm.data_ptr() % 16 or codebook_norm.data_ptr() % 16:
         raise ValueError('fused_nearest_codes kernel takes 16-byte aligned '
                          'operands')
     shape = z_norm.shape[:-1]
-    t = z_norm.numel() // CODE_DIM
+    dim = z_norm.shape[-1]
+    t = z_norm.numel() // dim
+    kdim = kernel_code_dim(dim)
+    if kdim != dim:  # zero columns: the same scores
+        z_norm = torch.nn.functional.pad(z_norm, (0, kdim - dim))
+        codebook_norm = torch.nn.functional.pad(codebook_norm, (0, kdim - dim))
     out = torch.empty(shape, dtype=torch.int32, device=z_norm.device)
     if t == 0:
         return out
@@ -175,7 +193,7 @@ def fused_nearest_codes(z_norm, codebook_norm):
         err = _kernel()(z_norm.data_ptr(), codebook_norm.data_ptr(),
                         out.data_ptr(),
                         None if keys is None else keys.data_ptr(), t, c,
-                        CODE_DIM, splits, stream)
+                        kdim, splits, stream)
     _build.check(err, 'vq_lookup')
     launches += 1
     return out

@@ -1,6 +1,6 @@
-"""Training harness: PaintMindTrainer (stage 2), with the signature and the
-defaults of ``paintmind_tpu/utils/trainer.py`` (reference
-paintmind/utils/trainer.py:291-437).
+"""Training harnesses: VQGANTrainer (stage 1) and PaintMindTrainer (stage
+2), with the signatures and the defaults of ``paintmind_tpu/utils/trainer.py``
+(reference paintmind/utils/trainer.py:61-283 and :291-437).
 
   reference                         ->  here
   ---------------------------------------------------------------------
@@ -8,7 +8,7 @@ paintmind/utils/trainer.py:291-437).
   accumulate() context              ->  a loop over microbatches in the step
   clip_grad_norm_ at sync           ->  clipping inside the optimizer's step
   timm CosineLRScheduler            ->  optim.build_scheduler (same piecewise)
-  torch AdamW / Lion                ->  optim.adamw / optim.lion
+  torch Adam / AdamW / Lion         ->  optim.adam / optim.adamw / optim.lion
   state_dict .pt snapshots          ->  one file of full train state (model,
                                         optimizer, EMA, step and every random
                                         generator: a true resume) plus a
@@ -17,8 +17,14 @@ paintmind/utils/trainer.py:291-437).
   tensorboard via accelerator.log   ->  MetricWriter (same metric names)
   make_grid eval dumps              ->  utils.image_grid (nrow=6, (-1,1))
 
-One process, one device.  ``VQGANTrainer`` (stage 1) and the multi-GPU
-options are not ported yet (ROADMAP queue A, 7b and 10).
+With ``ema_decay`` the model holds the averaged weights after ``save()``,
+``evaluate()``, ``resume()`` and the end of ``train()``, as the JAX
+package's ``_sync_model`` leaves them in ``model.params``; the raw weights
+wait in the trainer (and in the saved state) and go back into the model at
+the next training step, so syncing changes no later update.
+
+One process, one device.  The multi-GPU options are not ported yet (ROADMAP
+queue A, 10), nor rFID (11).
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ import numpy as np
 import torch
 
 from .. import optim
+from ..models import discriminator as disc_mod
+from ..models import lpips as lpips_mod
 from ..models.pipeline import _not_ported
 from ..train import steps as train_steps
 from .data import DataLoader, random_split
 from .image_grid import save_image_grid
 from .logging import Log, MetricWriter
+from .metrics import codebook_stats, psnr
 
 
 def _dtype_of(mixed_precision):
@@ -66,10 +75,52 @@ def masked_p_generator(rng=None):
     return float(np.cos(0.5 * np.pi * u))
 
 
+def _first_images(batch):
+    return batch[0] if isinstance(batch, (tuple, list)) else batch
+
+
 class _TrainerBase:
     _ckpt_prefix = 'state'
     _preempted = False
     keep_last = None  # retention policy: None = keep every checkpoint
+    _raw = None  # the raw weights while the model holds their averages
+
+    # subclasses with EMA: (the model's trained parameters, their averages)
+    def _ema_pairs(self):
+        return None
+
+    @torch.no_grad()
+    def _sync_model(self):
+        """With EMA on, put the averaged weights into the model (the JAX
+        package's ``_sync_model``) and keep the raw ones for training."""
+        pairs = self._ema_pairs()
+        if pairs is None or self._raw is not None:
+            return
+        params, ema = pairs
+        self._raw = [p.detach().clone() for p in params]
+        for p, e in zip(params, ema):
+            p.copy_(e)
+
+    @torch.no_grad()
+    def _unsync_model(self):
+        """The raw weights back into the model, before a training step."""
+        if self._raw is None:
+            return
+        params, _ = self._ema_pairs()
+        for p, r in zip(params, self._raw):
+            p.copy_(r)
+        self._raw = None
+
+    def _raw_state_dict(self, module):
+        """``module.state_dict()`` with the raw weights where the model
+        holds their averages: what a resume must train on."""
+        sd = module.state_dict()
+        if self._raw is not None:
+            names = {id(p): n for n, p in module.named_parameters()}
+            sd = dict(sd)
+            for p, r in zip(self._ema_pairs()[0], self._raw):
+                sd[names[id(p)]] = r
+        return sd
 
     def _setup_dirs(self, result_folder):
         self.result_folder = result_folder or './results'
@@ -166,17 +217,288 @@ class _TrainerBase:
                 raise FileNotFoundError(
                     f'no {self._ckpt_prefix}_state_* checkpoint under '
                     f'{self.model_saved_dir} to auto-resume from')
+        self._raw = None  # the loaded model holds raw weights
         self._restore_state(path)
         self.steps = self.state['step'] * self.grad_accum
+        self._sync_model()
         return self
+
+
+class VQGANTrainer(_TrainerBase):
+    """(reference trainer.py:61-283).  ``vqvae`` is a ``VQModel`` with fp32
+    parameters; it is trained in place, beside a PatchGAN discriminator
+    (``disc_config``, default the reference's ``(3, 64, 3)``).
+    ``perceptual_weights``: 'auto' (the converted LPIPS VGG ``.npz`` at
+    ``assets/lpips_vgg.npz`` beside this package, and a hard error without
+    it), 'random' (a seeded random-VGG perceptual loss: a training signal,
+    not the reference objective), 'none' (no perceptual term), a path to
+    such an ``.npz``, or an ``LPIPS`` module."""
+
+    _ckpt_prefix = 'vit_vq'
+
+    def __init__(self, vqvae, dataset, num_epoch, valid_size=32, lr=1e-4,
+                 lr_min=5e-5, warmup_steps=50000, warmup_lr_init=1e-6,
+                 decay_steps=None, batch_size=32, num_workers=8,
+                 pin_memory=False, max_grad_norm=1.0, grad_accum_steps=1,
+                 mixed_precision='bf16', save_every=10000, sample_every=1000,
+                 result_folder=None, log_dir='./log', seed=42, mesh=None,
+                 perceptual_weights='auto', d_weight=0.1, log_every=1,
+                 disc_config=None, remat=False, zero_sharding=False,
+                 eval_rfid=False, ema_decay=None,
+                 codebook_restart_every=None, train_loader=None,
+                 valid_loader=None, share_forward=True, keep_last=None):
+        del pin_memory
+        for name, value in (('mesh', mesh), ('zero_sharding', zero_sharding)):
+            if value:
+                raise _not_ported(f'VQGANTrainer({name}=...): multi-GPU '
+                                  'training', 10)
+        if eval_rfid:
+            raise _not_ported('VQGANTrainer(eval_rfid=True): rFID', 11)
+        self.vqvae = vqvae
+        self.device = vqvae.device
+        self.num_epoch = num_epoch
+        self.save_every = save_every
+        self.keep_last = keep_last
+        self.samp_every = sample_every
+        self.grad_accum = grad_accum_steps
+        self.log_dir = log_dir
+        self.log_every = log_every
+        self._setup_dirs(result_folder)
+
+        if train_loader is not None:
+            # externally built loaders; the train loader must yield
+            # batch_size·grad_accum images per host step
+            if valid_loader is None:
+                raise ValueError('train_loader also requires valid_loader')
+            self.train_dl, self.valid_dl = train_loader, valid_loader
+        else:
+            train_size = len(dataset) - valid_size
+            self.train_ds, self.valid_ds = random_split(
+                dataset, [train_size, valid_size], seed=seed)
+            print(f'train dataset size: {train_size}, '
+                  f'valid dataset size: {valid_size}')
+            # one host step = one optimizer update over grad_accum
+            # microbatches of batch_size each: the reference's effective batch
+            self.train_dl = DataLoader(self.train_ds,
+                                       batch_size * grad_accum_steps,
+                                       shuffle=True, seed=seed,
+                                       num_workers=num_workers)
+            self.valid_dl = DataLoader(self.valid_ds,
+                                       min(batch_size, valid_size),
+                                       shuffle=False, num_workers=num_workers)
+
+        # scheduler horizon and self.steps in reference microbatch units
+        iters = max(len(self.train_dl), 1) * grad_accum_steps
+        self.g_sched = optim.build_scheduler(
+            num_epoch, iters, lr, lr_min, warmup_steps, warmup_lr_init,
+            decay_steps)
+        self.d_sched = optim.build_scheduler(
+            num_epoch, iters, lr, lr_min, warmup_steps, warmup_lr_init,
+            decay_steps)
+
+        def tx(sched):
+            rate = _micro_schedule(sched, grad_accum_steps)
+            return lambda params: optim.adam(params, rate, (0.9, 0.99),
+                                             max_grad_norm)
+
+        self.lpips = self._load_perceptual(perceptual_weights)
+        # reference config: NLayerDiscriminator(3, 64, 3) (trainer.py:94)
+        self.dcfg = disc_config or disc_mod.DiscriminatorConfig(
+            input_nc=3, ndf=64, n_layers=3)
+        self.ema_decay = ema_decay
+        self.state = train_steps.init_vqgan_train_state(
+            vqvae, tx(self.g_sched), tx(self.d_sched), self.dcfg,
+            ema_decay=ema_decay,
+            codebook_restart_every=codebook_restart_every, seed=seed)
+        self._step = train_steps.make_vqgan_train_step(
+            vqvae, None, None, dcfg=self.dcfg, lpips=self.lpips,
+            d_weight=d_weight, grad_accum=grad_accum_steps,
+            compute_dtype=_dtype_of(mixed_precision), remat=remat,
+            ema_decay=ema_decay,
+            codebook_restart_every=codebook_restart_every,
+            share_forward=share_forward, state=self.state)
+        self.steps = 0
+        self.log = Log()  # train() starts a fresh one
+
+        n_params = vqvae.num_params + sum(
+            p.numel() for p in self.state['d'].parameters())
+        print(f'number of learnable parameters: {n_params // int(1e6)}M')
+
+    def _load_perceptual(self, spec):
+        """'auto' = the converted LPIPS ``.npz`` in ``assets/``, and a hard
+        error when it is missing: training silently against a random-VGG
+        perceptual loss is not the reference objective.  Opt out with
+        'none' (drop the term) or 'random' (random-feature perceptual
+        loss)."""
+        if spec in (None, 'none'):
+            return None
+        if spec == 'random':
+            print("NOTE: perceptual_weights='random': random-VGG perceptual "
+                  'loss; a real training signal, but NOT the reference LPIPS '
+                  'objective.')
+            return lpips_mod.LPIPS(seed=0, device=self.device)
+        default = os.path.join(os.path.dirname(__file__), '..', 'assets',
+                               'lpips_vgg.npz')
+        if spec == 'auto':
+            if os.path.exists(default):
+                return lpips_mod.load_lpips(default, device=self.device)
+            raise FileNotFoundError(
+                f'no pretrained LPIPS weights at {os.path.abspath(default)}. '
+                'Reference-parity stage-1 training needs the converted lpips '
+                "VGG weights (the JAX package's lpips_vgg.npz, made by its "
+                'tools/make_lpips_npz.py), or pass perceptual_weights=<npz '
+                "path>. To train WITHOUT parity, pass perceptual_weights="
+                "'random' (random-VGG perceptual term) or 'none' (drop the "
+                'term).')
+        if isinstance(spec, str):
+            return lpips_mod.load_lpips(spec, device=self.device)
+        return spec  # already a module
+
+    # -- state for save / resume ----------------------------------------
+
+    def _ema_pairs(self):
+        if 'g_ema' not in self.state:
+            return None
+        return list(self.vqvae.parameters()), self.state['g_ema']
+
+    def _state_dict(self):
+        state = {
+            'model': self._raw_state_dict(self.vqvae),
+            'g_opt': self.state['g_opt'].state_dict(),
+            'd': self.state['d'].state_dict(),
+            'd_opt': self.state['d_opt'].state_dict(),
+            'step': self.state['step'],
+            'generator': self.state['generator'].get_state(),
+        }
+        for key in ('g_ema', 'code_usage'):
+            if key in self.state:
+                state[key] = self.state[key]
+        return state
+
+    @torch.no_grad()
+    def _load_state_dict(self, state):
+        for key in ('g_ema', 'code_usage'):
+            if (key in state) != (key in self.state):
+                raise ValueError(f'the checkpoint and this trainer disagree '
+                                 f'on {key}')
+        self.vqvae.load_state_dict(state['model'])
+        self.state['g_opt'].load_state_dict(state['g_opt'])
+        self.state['d'].load_state_dict(state['d'])
+        self.state['d_opt'].load_state_dict(state['d_opt'])
+        self.state['step'] = state['step']
+        self.state['generator'].set_state(state['generator'])
+        for e, saved in zip(self.state.get('g_ema', ()), state.get('g_ema', ())):
+            e.copy_(saved)
+        if 'code_usage' in state:
+            self.state['code_usage'].copy_(state['code_usage'])
+
+    # -- training -------------------------------------------------------
+
+    def train_step(self, batch):
+        """One optimizer update on ``batch`` (batch_size · grad_accum_steps
+        images, or (images, ...)); returns the step's metrics, 0-d tensors
+        on the device."""
+        self._unsync_model()
+        imgs = torch.as_tensor(_first_images(batch), dtype=torch.float32,
+                               device=self.device)
+        metrics = self._step(imgs)
+        self.steps += self.grad_accum
+        return metrics
+
+    def train(self):
+        self.log = Log()
+        writer = self._writer = MetricWriter(self.log_dir, 'vqgan')
+        restore_sig = self._install_preemption_handler()
+        try:
+            self._train_loop(writer)
+        finally:
+            restore_sig()
+            writer.close()
+            self._writer = None
+        if self.steps != getattr(self, '_last_saved_steps', None):
+            self.save()  # final partial save interval
+        self._sync_model()
+        print('Train finished!'
+              if not self._preempted else 'Train preempted: state saved.')
+
+    def _train_loop(self, writer):
+        for epoch in range(self.num_epoch):
+            for batch in self.train_dl:
+                if self._handle_preemption():
+                    return
+                prev = self.steps
+                metrics = self.train_step(batch)
+
+                if self.steps // self.log_every > prev // self.log_every:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    if not np.isfinite(m['loss']):  # failure detection (ext.)
+                        raise FloatingPointError(
+                            f'non-finite loss at step {self.steps}: {m}: '
+                            'resume from the last checkpoint with .resume()')
+                    m['g lr'] = float(self.g_sched(self.steps))
+                    m['d lr'] = float(self.d_sched(self.steps))
+                    self.log.update(m)
+                    writer.log({
+                        'reconstruct loss': m['rec loss'],
+                        'perceptual loss': m['per loss'],
+                        'g_loss': m['g loss'],
+                        'd_loss': m['d loss'],
+                        'g_lr': m['g lr'],
+                        'd_lr': m['d lr'],
+                    }, self.steps)
+
+                if self.steps // self.save_every > prev // self.save_every:
+                    self.save()
+                if self.steps // self.samp_every > prev // self.samp_every:
+                    self.evaluate()
+
+    # -- export and evaluation ------------------------------------------
+
+    def save(self):
+        """Model-only ``.npz`` (the averaged weights when EMA is on, which
+        the model then keeps) plus the full train state (reference saves
+        the model's state_dict only, trainer.py:261-264)."""
+        self._sync_model()
+        self._last_saved_steps = self.steps
+        self.vqvae.save_pretrained(os.path.join(
+            self.model_saved_dir, f'vit_vq_step_{self.steps}.npz'))
+        path = self._save_state(f'vit_vq_state_{self.steps}.pt')
+        self._prune_checkpoints('vit_vq')
+        return path
+
+    def evaluate(self):
+        """Reconstruct the validation set (one encode per batch): PSNR,
+        codebook usage and perplexity into the log, an image grid of
+        (input, reconstruction) pairs per batch."""
+        self._sync_model()
+        all_ids, psnrs = [], []
+        for i, batch in enumerate(self.valid_dl):
+            imgs = np.asarray(_first_images(batch), np.float32)
+            z, _, ids = self.vqvae.encode(imgs)
+            rec = self.vqvae.decode(z).float().cpu().numpy()
+            all_ids.append(ids.cpu().numpy())
+            psnrs.append(psnr(rec, imgs))
+            pairs = np.stack([imgs, rec], axis=1).reshape(-1, *imgs.shape[1:])
+            save_image_grid(pairs, os.path.join(
+                self.image_saved_dir, f'step_{self.steps}_{i}.png'))
+        if all_ids:  # reconstruction quality and codebook health
+            stats = codebook_stats(np.concatenate(all_ids),
+                                   self.vqvae.config.n_embed)
+            evals = {'codebook usage': stats['usage'],
+                     'codebook perplexity': stats['perplexity'],
+                     'val psnr': float(np.mean(psnrs))}
+            self.log.update(evals)
+            if getattr(self, '_writer', None) is not None:
+                self._writer.log(evals, self.steps)
 
 
 class PaintMindTrainer(_TrainerBase):
     """(reference trainer.py:291-437).  ``model`` is a ``Pipeline`` built
     with ``compute_dtype=None`` (fp32 master weights); it is trained in
-    place.  With ``ema_decay`` the model keeps the raw weights and the
-    averaged ones are swapped in for ``evaluate()`` and for the ``.npz``
-    export of ``save()``."""
+    place.  With ``ema_decay`` the model holds the averaged trainable
+    weights after ``save()``, ``evaluate()``, ``resume()`` and the end of
+    ``train()`` (the JAX package's ``_sync_model``); the next
+    ``train_step`` puts the raw weights back first."""
 
     _ckpt_prefix = 'paintmind'
 
@@ -274,7 +596,7 @@ class PaintMindTrainer(_TrainerBase):
 
     def _state_dict(self):
         state = {
-            'model': self.model.state_dict(),
+            'model': self._raw_state_dict(self.model),
             'opt': self.state['opt'].state_dict(),
             'step': self.state['step'],
             'generator': self.state['generator'].get_state(),
@@ -301,6 +623,11 @@ class PaintMindTrainer(_TrainerBase):
         for e, saved in zip(self.state.get('ema', ()), state.get('ema', ())):
             e.copy_(saved)
 
+    def _ema_pairs(self):
+        if 'ema' not in self.state:
+            return None
+        return self.model.trainable_parameters(), self.state['ema']
+
     # -- one host step --------------------------------------------------
 
     def _embed(self, text):
@@ -319,6 +646,7 @@ class PaintMindTrainer(_TrainerBase):
         """One optimizer update on ``batch`` (images or (images, captions),
         batch_size · grad_accum_steps of them); returns the step's metrics
         with ``loss`` still on the device."""
+        self._unsync_model()
         imgs, text = batch if isinstance(batch, (tuple, list)) else (batch, None)
         if self._py_rng.random() < self.cfg_p:  # CFG dropout (ref :387-388)
             text = None
@@ -340,6 +668,7 @@ class PaintMindTrainer(_TrainerBase):
             writer.close()
         if self.steps != getattr(self, '_last_saved_steps', None):
             self.save()  # final partial save interval
+        self._sync_model()
         self.model.eval()
         print('Train finished!'
               if not self._preempted else 'Train preempted: state saved.')
@@ -369,48 +698,33 @@ class PaintMindTrainer(_TrainerBase):
 
     # -- export and evaluation ------------------------------------------
 
-    @torch.no_grad()
-    def _swap_ema(self):
-        """Exchange the trainable parameters with their averages (twice is
-        the identity)."""
-        for p, e in zip(self.model.trainable_parameters(),
-                        self.state.get('ema', ())):
-            raw = p.detach().clone()
-            p.copy_(e)
-            e.copy_(raw)
-
     def save(self):
-        """Model-only ``.npz`` (the averaged weights when EMA is on) plus
-        the full train state."""
+        """Model-only ``.npz`` (the averaged weights when EMA is on, which
+        the model then keeps) plus the full train state (raw weights and
+        averages)."""
+        self._sync_model()
         self._last_saved_steps = self.steps
-        self._swap_ema()
-        try:
-            self.model.save_pretrained(os.path.join(
-                self.model_saved_dir, f'paintmind_step_{self.steps}.npz'))
-        finally:
-            self._swap_ema()
+        self.model.save_pretrained(os.path.join(
+            self.model_saved_dir, f'paintmind_step_{self.steps}.npz'))
         path = self._save_state(f'paintmind_state_{self.steps}.pt')
         self._prune_checkpoints('paintmind')
         return path
 
     def evaluate(self):
         self.model.eval()
-        self._swap_ema()
-        try:
-            for i, batch in enumerate(self.valid_dl):
-                imgs, text = (batch if isinstance(batch, (tuple, list))
-                              else (batch, None))
-                context = self._embed(text)
-                # caption-less datasets eval unconditionally: still sample a
-                # full batch (generate defaults to ONE sample with no context)
-                gens = self.model.generate(text=context, timesteps=18,
-                                           temperature=1.0, topk=5,
-                                           save_interval=2,
-                                           num_samples=len(imgs))
-                all_imgs = np.concatenate(
-                    [np.asarray(imgs, np.float32)]
-                    + [g.float().cpu().numpy() for g in gens], axis=0)
-                save_image_grid(all_imgs, os.path.join(
-                    self.image_saved_dir, f'step_{self.steps}_{i}.png'))
-        finally:
-            self._swap_ema()
+        self._sync_model()
+        for i, batch in enumerate(self.valid_dl):
+            imgs, text = (batch if isinstance(batch, (tuple, list))
+                          else (batch, None))
+            context = self._embed(text)
+            # caption-less datasets eval unconditionally: still sample a
+            # full batch (generate defaults to ONE sample with no context)
+            gens = self.model.generate(text=context, timesteps=18,
+                                       temperature=1.0, topk=5,
+                                       save_interval=2,
+                                       num_samples=len(imgs))
+            all_imgs = np.concatenate(
+                [np.asarray(imgs, np.float32)]
+                + [g.float().cpu().numpy() for g in gens], axis=0)
+            save_image_grid(all_imgs, os.path.join(
+                self.image_saved_dir, f'step_{self.steps}_{i}.png'))

@@ -231,10 +231,25 @@ def test_sample_wrapper_on_cpu_uses_plain_and_generator():
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     """Checks that run before any build or launch: the wrappers refuse a
-    device they do not support instead of falling back."""
+    device they do not support instead of falling back.  What the kernels
+    take: K1 / K4 every head dim up to 128 (compiled at 64 and 128, smaller
+    ones zero-padded to the next), nothing above (``attention_core`` sends
+    those to the plain math, as the JAX package sends them to XLA); K2
+    every code dim (compiled at 8, 16 and 32, wider ones in chunks of 64)."""
     meta = torch.empty(1, 4, 1, 64, device='meta')
     with pytest.raises(ValueError):
         tfa.flash_attention(meta, meta, meta, 0.125)
+    for d in (129, 256):
+        wide = torch.empty(1, 4, 1, d, device='meta')
+        with pytest.raises(ValueError):
+            tfa.flash_attention(wide, wide, wide, 0.125)
+    assert [tfa.kernel_head_dim(d) for d in (1, 16, 32, 63, 64, 65, 100, 128)] \
+        == [64, 64, 64, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match='up to 128'):
+        tfa.kernel_head_dim(129)
+    assert [tvq.kernel_code_dim(d) for d in (1, 8, 9, 16, 17, 32, 33, 64, 65,
+                                             100, 128, 200)] \
+        == [8, 8, 16, 16, 32, 32, 64, 64, 128, 128, 128, 256]
     with pytest.raises(ValueError):
         tvq.fused_nearest_codes(torch.empty(4, 32, device='meta'),
                                 torch.empty(8, 32, device='meta'))
@@ -533,3 +548,95 @@ def test_codebook_splits_fill_the_card(t, c, want):
     """About two blocks per SM (132 on an H100), never more splits than
     codebook tiles, one when the token tiles alone fill the card."""
     assert tvq.codebook_splits(t, c, 132) == want
+
+
+# ---------------------------------------------------------------------------
+# Head dims and code dims other than the main path's (64, 32)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('d', [16, 32, 128])
+def test_flash_tiled_emulations_at_other_head_dims(interpret_mode, d, dtype):
+    """The tiled emulations zero-pad the head dim to the compiled one (64 or
+    128) as the wrappers do, and give the plain versions' results and the
+    Pallas forward's (interpret mode, which takes any head dim) at N = 72,
+    M = 77: forward fp32 <= 1e-5 mean relative, bf16 <= 1e-3 mean abs (one
+    bf16 rounding of the probabilities, as at head dim 64); backward against
+    ``flash_attention_backward_plain`` <= 1e-5 mean relative in fp32 and
+    <= 1e-4 in bf16 (both round P and dS at the same places)."""
+    rng = np.random.default_rng(d)
+    tdt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, s, 2, d)).astype(
+        np.float32)).to(tdt) for s in (72, 77, 77, 72))
+    scale = d ** -0.5
+    out, lse = tfa.flash_attention_tiled(q, k, v, scale)
+    assert out.shape == q.shape and out.dtype == tdt
+    plain = tfa.flash_attention_plain(q, k, v, scale).float().numpy()
+    pallas = np.asarray(jfa.flash_attention(
+        *(jnp.asarray(a.float().numpy(), getattr(jnp, dtype))
+          for a in (q, k, v)), scale).astype(jnp.float32))
+    for ref in (plain, pallas):
+        err = float(np.abs(out.float().numpy() - ref).mean())
+        if dtype == 'float32':
+            assert err / float(np.abs(ref).mean()) <= 1e-5
+        else:
+            assert err <= 1e-3
+    got = tfa.flash_attention_backward_tiled(q, k, v, g, scale, lse)
+    want = tfa.flash_attention_backward_plain(q, k, v, g, scale)
+    gate = 1e-5 if dtype == 'float32' else 1e-4
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == tdt
+        rel = float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+        assert rel <= gate
+
+
+def test_attention_auto_follows_the_jax_head_dim_rule(monkeypatch):
+    """'auto' sends a head dim the JAX package's ``_flash_ok`` sends to its
+    kernel (<= 128) to the K1 wrapper and a larger one to the plain math,
+    as JAX sends it to XLA; 'flash' asks for the kernel whatever the head
+    dim.  On the CPU both give the plain result."""
+    from paintmind_tpu.nn import attention as jattn
+    from paintmind_tpu_torch.nn import attention as tattn
+    calls = []
+
+    def spy(q, k, v, scale):
+        calls.append(q.shape[-1])
+        return tfa.flash_attention_plain(q, k, v, scale)
+
+    monkeypatch.setattr(tattn, 'flash_attention', spy)
+    for d in (16, 64, 128, 160, 256):
+        q = torch.randn(1, 128, 2, d, generator=torch.Generator().manual_seed(d))
+        calls.clear()
+        out = tattn.attention_core(q, q, q, d ** -0.5, 'auto')
+        assert (calls == [d]) == bool(jattn._flash_ok(
+            jnp.zeros(q.shape), jnp.zeros(q.shape)))
+        assert torch.equal(out, tfa.flash_attention_plain(q, q, q, d ** -0.5))
+        calls.clear()
+        tattn.attention_core(q, q, q, d ** -0.5, 'flash')
+        assert calls == [d]
+
+
+@pytest.mark.parametrize('dim', [8, 12, 48])
+def test_nearest_codes_at_other_code_dims(interpret_mode, dim):
+    """At code dims 8 (compiled), 12 (zero-padded to 16) and 48 (padded to
+    64, the chunked kernel): the plain version, the kernel's selection on
+    the CPU with every number of codebook splits, and the Pallas kernel in
+    interpret mode give the same indices, also on duplicated codebook rows
+    (the lowest index wins); zero-padding the operands changes no index."""
+    rng = np.random.default_rng(dim)
+    z = np.array(jax_l2norm(jnp.asarray(rng.standard_normal((130, dim)),
+                                        jnp.float32)))
+    e = np.array(jax_l2norm(jnp.asarray(rng.standard_normal((96, dim)),
+                                        jnp.float32)))
+    e = np.tile(e, (3, 1))  # exact ties: three copies of each code
+    zt, et = torch.from_numpy(z), torch.from_numpy(e)
+    ref = tvq.nearest_codes_plain(zt, et)
+    pallas = np.asarray(jvq.fused_nearest_codes(jnp.asarray(z), jnp.asarray(e)))
+    np.testing.assert_array_equal(ref.numpy(), pallas)
+    assert int(ref.max()) < 96
+    pad = tvq.kernel_code_dim(dim) - dim
+    padded = [torch.nn.functional.pad(t, (0, pad)) for t in (zt, et)]
+    for splits in (1, 2, 3):
+        for args in ((zt, et), padded):
+            np.testing.assert_array_equal(
+                tvq.nearest_codes_tiled(*args, splits).numpy(), ref.numpy())
