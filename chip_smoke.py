@@ -18,12 +18,16 @@ exits non-zero with no result line:
   3. holds each kernel against its plain PyTorch version at the main
      path's shapes, and times kernel, plain version and (where one exists)
      the PyTorch library call, beside the least time the card could take;
-     K1 and K4 also at head dims 128 and 32, K2 at code dims 8, 16, 12, 48
-     and 100;
+     K1 and K4 also at head dims 128 and 32, K1 at N = M = 4096 (the 512²
+     variant), K2 at code dims 8, 16, 12, 48 and 100;
   4. stage 1: the shipped vit-s-vqgan weights reconstruct 8 seeded 256²
      images through the kernels and through the plain versions; then a
      registered model of head dim 16 and code dim 8 runs ``generate``,
-     ``reconstruct`` and a training microbatch through the kernels;
+     ``reconstruct`` and a training microbatch through the kernels; then
+     the 512² variant: ``adapt_vqmodel_resolution`` of the shipped weights
+     reconstructs at 4096 tokens against the plain versions, and a seeded
+     ``paintmindv1-512`` generates in fp32 (against the plain attention)
+     and in bf16 (timed), through K1, K3 and the re-mask's sort route;
   5. stage 2: a full-width paintmindv1 pipeline (seeded random stage-2
      weights, bf16) runs a 16-step ``generate`` at B = 8, the same with
      classifier-free guidance, and an ``inpaint``; the launch counters must
@@ -48,7 +52,11 @@ exits non-zero with no result line:
      with the plain versions, five timed updates of
      ``make_vqgan_train_step`` (share_forward, two microbatches, EMA) with
      their launch counts and peak memory, and a ``VQGANTrainer.train()``
-     with ``save()``, ``resume('auto')`` and one ``evaluate()``;
+     with ``save()``, ``resume('auto')`` and one ``evaluate()``; then the
+     command lines, in process at full width on 40 seeded JPEGs:
+     ``train_vqgan`` -> ``train_paintmind`` on its export -> ``generate``
+     (and ``--mode inpaint``) on that export, and ``convert_checkpoint`` of
+     a seeded reference-layout ``.pt``;
   8. ``torch.profiler`` windows over one unguided ``generate``, one stage-2
      training microbatch and one stage-1 microbatch: the ten device
      operations with the most time, and the device's busy share of each
@@ -191,10 +199,13 @@ ATTN_CASES = (('stage-2 self', 8, 1024, 1024, 16, 64, True),
               ('stage-2 cross', 8, 1024, 77, 16, 64, True),
               ('vqgan self', 8, 1024, 1024, 8, 64, True),
               ('vqgan self', 8, 1024, 1024, 8, 128, True),
-              ('vqgan self', 8, 1024, 1024, 8, 32, False),
+              ('vqgan self', 8, 1024, 1024, 8, 32, True),
               ('ragged', 2, 200, 77, 3, 64, False),
               ('ragged', 2, 200, 77, 3, 128, False),
               ('ragged', 2, 200, 77, 3, 32, False))
+# K1 only: the 512² variant's self-attention (4096 tokens), which the 512²
+# phase runs; K4 at 4096 tokens (512² training) is not on a path yet
+K1_ONLY_CASES = (('512² self', 2, 4096, 4096, 16, 64, True),)
 
 
 def check_k1(g):
@@ -209,11 +220,13 @@ def check_k1(g):
     emulation, which rounds where the kernel does (measured 2e-7: only the
     order of the fp32 sums and the hardware's exp2 differ).  The log-sum-exp
     output against ``torch.logsumexp`` of the fp32 scaled scores: max abs
-    <= 1e-3 in bf16 (measured 1e-6), <= 1e-5 in fp32.  Times every shape;
-    the result line carries the main path's most frequent call, stage-2
+    <= 1e-3 in bf16 (measured 1e-6), <= 1e-5 in fp32.  The same gates at
+    N = M = 4096 (B = 2, H = 16: the 512² variant; the plain version then
+    holds B·H·4096² fp32 scores, 2 GiB).  Times the unragged shapes; the
+    result line carries the main path's most frequent call, stage-2
     self-attention in bf16."""
     entry = None
-    for label, b, n, m, h, d, timed in ATTN_CASES:
+    for label, b, n, m, h, d, timed in ATTN_CASES + K1_ONLY_CASES:
         scale = d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(b, n, h, d, device='cuda', generator=g).to(dtype)
@@ -282,7 +295,7 @@ def check_k4(g):
     ``torch.autograd.grad`` through ``flash_attention`` must give the bits
     of a direct K4 call, and a second direct call the same bits again.
     Times the training shapes (``ATTN_CASES``: stage-2 and VQGAN at head dim
-    64, VQGAN at 128; 32 and the ragged cases checked only); the result line
+    64, VQGAN at 128 and 32; the ragged cases checked only); the result line
     carries the stage-2 path's most frequent call, stage-2 self-attention in
     bf16, beside the backward of ``F.scaled_dot_product_attention`` on a
     retained graph."""
@@ -381,7 +394,8 @@ def check_k2(g):
     chunk of the chunked variant) and 100 (padded to 128, two chunks), each
     on a seeded 8192-row codebook at T = 8192 and T = 1000 (ragged), the
     same gate.  Two launches bit-equal everywhere.  Times T = 8192 at code
-    dims 32 and 8, and T = 1024."""
+    dims 32 and 8 (beside the plain version and ``argmax(z @ eᵀ)``), and
+    T = 1024."""
     codebook = load_flat(ASSET)['quantize/codebook'].float().cuda()
     e = tq.l2norm(codebook).contiguous()
     z = tq.l2norm(torch.randn(8 * 1024, 32, device='cuda', generator=g))
@@ -412,9 +426,12 @@ def check_k2(g):
                          f'{d} differ, gap {gap:.1e}')
         if dim == 8:
             ms8 = time_ms(lambda: vq.fused_nearest_codes(zd, ed), 50)
+            plain8 = time_ms(lambda: vq.nearest_codes_plain(zd, ed), 20)
+            lib8 = time_ms(lambda: torch.argmax(zd @ ed.t(), dim=-1), 20)
             bms8, _ = bound((2 * 8192 * 8) * 4 + 8192 * 4, 2 * 8192 * 8192 * 8,
                             torch.float32)
-            notes.append(f'D=8 T=8192 ms={ms8:.4f} bound_ms={bms8:.4f}')
+            notes.append(f'D=8 T=8192 ms={ms8:.4f} plain_ms={plain8:.4f} '
+                         f'argmax_matmul_ms={lib8:.4f} bound_ms={bms8:.4f}')
     log('K2 code dims: ' + '; '.join(notes) + f'; {CARD}')
     t, c, d = z.shape[0], e.shape[0], z.shape[1]
     ms = time_ms(lambda: vq.fused_nearest_codes(z, e), 50)
@@ -1361,6 +1378,115 @@ def tiny_pipeline(totals):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the 512² variant (4096 tokens)
+# ---------------------------------------------------------------------------
+
+def variant_512(totals):
+    """The 512² variant on the card.  ``adapt_vqmodel_resolution`` of the
+    shipped weights builds ``vit-s-vqgan-512`` (position tables resized
+    32² -> 64²); ``reconstruct`` at B = 2 through K1 (4096 tokens) and K2
+    (T = 8192) against the plain versions at phase 4's fp32 gates (ids agree
+    >= 0.999, MAE <= 1e-3).  Then ``paintmindv1-512``: seeded stage-2
+    weights over that tokenizer; one fp32 ``generate`` (B = 2, 4 steps,
+    top-k 5) through the kernels and through the plain attention, both
+    drawing K3's noise from one seed: ids agree >= 0.999, image MAE <= 1e-3
+    (the tiny pipeline's gate); one counted fp32 ``generate`` and a bf16
+    ``generate`` at B = 2 for 16 steps, timed (images/s).  Every generate
+    takes the re-mask's sort route (L > 2048): its call count
+    (``pipeline.sort_remasks``) must equal the steps."""
+    from paintmind_tpu_torch.convert.from_jax import load_jax_params
+    from paintmind_tpu_torch.convert.resolution import adapt_vqmodel_resolution
+    from paintmind_tpu_torch.models import pipeline as tpl
+
+    flat = adapt_vqmodel_resolution(load_flat(ASSET), 4096)
+    vq = load_jax_params(pt.create_model('vqgan', 'vit-s-vqgan-512',
+                                         pretrained=False), flat)
+    enc, dec = vq.config.enc.depth, vq.config.dec.depth
+    x = seeded_images(2, 512, 21)
+    rec, s_rec = drive(lambda: vq.reconstruct(x), {'K1': enc + dec, 'K2': 1},
+                       totals, '512² reconstruct B=2 fp32 (4096 tokens)')
+    plain = vq.reconstruct(x, backend='plain', vq_backend='plain')
+    ids = vq.encode(x)[2]
+    plain_ids = vq.encode(x, backend='plain', vq_backend='plain')[2]
+    mae = (rec - plain).abs().mean().item()
+    agree = (ids == plain_ids).float().mean().item()
+    check(rec.shape == (2, 512, 512, 3) and bool(torch.isfinite(rec).all()),
+          f'512² reconstruct {tuple(rec.shape)}')
+    check(agree >= 0.999 and mae <= 1e-3,
+          f'512² reconstruct kernel vs plain: ids agree {agree}, MAE {mae}')
+    psnr = 10 * np.log10(4.0 / ((rec - x) ** 2).mean().item())
+    log(f'512² reconstruct: kernel vs plain MAE={mae:.3e}, ids agree '
+        f'{agree:.5f}, PSNR vs input {psnr:.2f} dB (position tables '
+        f'interpolated from the 256² weights, not trained at 512²)')
+    del rec, plain
+
+    def pipeline(dtype):
+        pipe = pt.create_model('pipeline', 'paintmindv1-512', pretrained=False,
+                               text_encoder=None, compute_dtype=dtype, seed=5)
+        load_jax_params(pipe.vqgan, flat)
+        return pipe
+
+    pipe = pipeline(None)
+    cfg = pipe.config
+    check(cfg.num_tokens == 4096, f'paintmindv1-512 has {cfg.num_tokens} tokens')
+    depth = cfg.depth
+    g = torch.Generator(device='cuda').manual_seed(0)
+    ctx = torch.randn(2, 77, cfg.t5_dim, device='cuda', generator=g)
+    init = torch.full((2, cfg.num_tokens), cfg.mask_token_id, dtype=torch.int32,
+                      device='cuda')
+    steps = 4
+    runs = {}
+    for backend in (None, 'plain'):
+        tpl.sort_remasks = 0
+        gen = torch.Generator(device='cuda').manual_seed(9)
+        # the last step's display ids (masked slots hold their prediction),
+        # which Pipeline.generate decodes
+        _, shown = tpl.generate_ids(pipe, init, ctx, cfg=cfg, timesteps=steps,
+                                    topk=5, backend=backend, generator=gen)
+        check(tpl.sort_remasks == steps, f'512² generate ({backend}): '
+              f'{tpl.sort_remasks} sort re-masks in {steps} steps')
+        runs[backend] = (shown[-1], pipe.vqgan.decode_from_indice(
+            shown[-1], backend=backend))
+    agree = (runs[None][0] == runs['plain'][0]).float().mean().item()
+    mae = (runs[None][1] - runs['plain'][1]).abs().mean().item()
+    check(agree >= 0.999 and mae <= 1e-3,
+          f'512² generate kernels vs plain attention: ids agree {agree}, MAE {mae}')
+    log(f'512² generate fp32 B=2 {steps} steps, kernels vs plain attention '
+        f'(K3 on one seed in both): ids agree {agree:.5f}, image MAE {mae:.3e}')
+    del runs
+    tpl.sort_remasks = 0
+    imgs, _ = drive(lambda: pipe.generate(text=ctx, timesteps=steps, topk=5,
+                                          decode_steps='final', generator=g)[-1],
+                    {'K1': depth * 2 * steps + dec, 'K3': steps}, totals,
+                    f'512² generate B=2 {steps} steps fp32')
+    check(imgs.shape == (2, 512, 512, 3) and bool(torch.isfinite(imgs).all())
+          and float(imgs.abs().max()) <= 1.0, f'512² generate {imgs.shape}')
+    check(tpl.sort_remasks == steps, '512² generate did not take the sort route')
+    del pipe, imgs
+    gc.collect()
+
+    pipe = pipeline(torch.bfloat16)
+    steps = 16
+    pipe.generate(text=ctx, timesteps=2, topk=5, decode_steps='final',
+                  generator=g)  # warm-up
+    tpl.sort_remasks = 0
+    torch.cuda.reset_peak_memory_stats()
+    imgs, sec = drive(lambda: pipe.generate(text=ctx, timesteps=steps, topk=5,
+                                            decode_steps='final',
+                                            generator=g)[-1],
+                      {'K1': depth * 2 * steps + dec, 'K3': steps}, totals,
+                      f'512² generate B=2 {steps} steps bf16')
+    check(imgs.shape == (2, 512, 512, 3) and bool(torch.isfinite(imgs).all())
+          and float(imgs.abs().max()) <= 1.0, f'512² bf16 generate {imgs.shape}')
+    check(tpl.sort_remasks == steps,
+          f'512² bf16 generate: {tpl.sort_remasks} sort re-masks')
+    log(f'512² generate bf16 B=2 {steps} steps (incl. decode): {sec:.3f} s = '
+        f'{2 / sec:.3f} images/s, peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; reconstruct '
+        f'B=2 fp32 {s_rec:.3f} s; {CARD}')
+
+
+# ---------------------------------------------------------------------------
 # phase 7b: stage-1 (VQGAN) training
 # ---------------------------------------------------------------------------
 
@@ -1537,6 +1663,130 @@ def stage1_training(totals):
             f"{first.log['codebook usage']:.4f}, perplexity "
             f"{first.log['codebook perplexity']:.1f}")
     return vqgan, d, lpips, imgs16[:8]
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the command lines
+# ---------------------------------------------------------------------------
+
+# The native (C++, libjpeg) loader of ``train_vqgan --native-loader`` is not
+# driven here: the H100 machine this script is run on has no libjpeg
+# headers (``jpeglib.h``), so the library cannot be built there.  The CPU
+# tests hold it against the JAX package's library.
+NATIVE_LOADER = False
+
+
+def write_jpegs(folder, n):
+    """``n`` smooth seeded JPEGs, two of every three non-square (resize and
+    crop run), between 256 and 448 pixels a side."""
+    os.makedirs(folder)
+    rng = np.random.default_rng(31)
+    sizes = ((448, 320), (320, 320), (256, 384))
+    for i in range(n):
+        low = rng.integers(0, 255, (8, 8, 3), dtype=np.uint8)
+        Image.fromarray(low).resize(sizes[i % 3], Image.BICUBIC).save(
+            os.path.join(folder, f'img_{i:02d}.jpg'), quality=90)
+    return folder
+
+
+def command_lines(totals):
+    """The four command lines, called in process through ``main(argv)`` at
+    full width on 40 seeded JPEGs: ``train_vqgan`` from the shipped weights
+    (LPIPS 'random', B = 8, one update: 40 images less the trainer's 32 held
+    out), ``train_paintmind`` over the tokenizer that run exported (B = 8,
+    three updates, unconditional: a folder has no captions), ``generate``
+    from the pipeline that run exported (16 steps) and ``--mode inpaint`` on
+    one of the JPEGs, and ``convert_checkpoint`` on a ``.pt`` written from
+    a seeded VQGAN in the reference's state-dict layout, whose archive and
+    whose ``.pt`` both load to the seeded weights.  Finite losses, the
+    files written, the PNGs' sizes and every command's launches."""
+    from paintmind_tpu_torch.convert.from_jax import to_flat
+    from paintmind_tpu_torch.convert.torch_weights import to_reference
+    from paintmind_tpu_torch.scripts import (convert_checkpoint, generate,
+                                             train_paintmind, train_vqgan)
+    vcfg = pt.ver2cfg['vit-s-vqgan']
+    enc, dec = vcfg['enc']['depth'], vcfg['dec']['depth']
+    depth = pt.ver2cfg['paintmindv1']['depth']
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_jpegs(os.path.join(tmp, 'jpegs'), 40)
+        common = ['--batch-size', '8', '--grad-accum', '1', '--epochs', '1',
+                  '--sample-every', '1000', '--num-workers', '8',
+                  '--log-dir', os.path.join(tmp, 'log')]
+        argv = ['--dataset', f'folder:{data}', '--init-checkpoint', ASSET,
+                '--perceptual', 'random', '--save-every', '1',
+                '--result-folder', os.path.join(tmp, 'vqgan'), *common]
+        if NATIVE_LOADER:
+            argv.append('--native-loader')
+        s1, sec1 = drive(lambda: train_vqgan.main(argv),
+                         {'K1': enc + dec, 'K2': 1, 'K4': enc + dec}, totals,
+                         'train_vqgan: 1 update B=8 + save')
+        models = os.path.join(tmp, 'vqgan', 'models')
+        check(s1.steps == 1 and math.isfinite(s1.log['loss'])
+              and math.isfinite(s1.log['rec loss']),
+              f'train_vqgan: steps {s1.steps}, log {s1.log.data}')
+        check(sorted(os.listdir(models)) == ['vit_vq_state_1.pt',
+                                             'vit_vq_step_1.npz'],
+              f'train_vqgan wrote {os.listdir(models)}')
+        stage1 = os.path.join(models, 'vit_vq_step_1.npz')
+        del s1
+        gc.collect()
+
+        s2, sec2 = drive(lambda: train_paintmind.main([
+            '--dataset', f'folder:{data}', '--stage1-checkpoint', stage1,
+            '--save-every', '3', '--result-folder',
+            os.path.join(tmp, 'paintmind'), *common]),
+            {'K1': 3 * (enc + 2 * depth), 'K2': 3, 'K4': 3 * 2 * depth},
+            totals, 'train_paintmind: 3 updates B=8 + save')
+        models = os.path.join(tmp, 'paintmind', 'models')
+        check(s2.steps == 3 and math.isfinite(s2.log['loss']),
+              f'train_paintmind: steps {s2.steps}, log {s2.log.data}')
+        check(sorted(os.listdir(models)) == ['paintmind_state_3.pt',
+                                             'paintmind_step_3.npz'],
+              f'train_paintmind wrote {os.listdir(models)}')
+        loss2 = s2.log['loss']
+        del s2
+        gc.collect()
+
+        pipeline = os.path.join(models, 'paintmind_step_3.npz')
+        out = os.path.join(tmp, 'samples.png')
+        imgs, sec3 = drive(lambda: generate.main([
+            '--checkpoint', pipeline, '--timesteps', '16', '--out', out]),
+            {'K1': 2 * depth * 16 + dec, 'K3': 16}, totals,
+            'generate: 16 steps B=1 fp32')
+        check(imgs.shape == (1, 256, 256, 3) and np.isfinite(imgs).all()
+              and Image.open(out).size == (260, 260),
+              f'generate: {imgs.shape}, PNG {Image.open(out).size}')
+        out = os.path.join(tmp, 'inpaint.png')
+        painted, sec4 = drive(lambda: generate.main([
+            '--checkpoint', pipeline, '--timesteps', '16', '--out', out,
+            '--mode', 'inpaint', '--image', os.path.join(data, 'img_00.jpg')]),
+            {'K1': enc + 2 * depth * 16 + dec, 'K2': 1, 'K3': 16}, totals,
+            'generate --mode inpaint: 16 steps B=1 fp32')
+        check(painted.shape == (1, 256, 256, 3) and np.isfinite(painted).all()
+              and Image.open(out).size == (260, 260),
+              f'inpaint: {painted.shape}, PNG {Image.open(out).size}')
+
+        seeded = pt.create_model('vqgan', 'vit-s-vqgan', pretrained=False,
+                                 seed=13)
+        src = os.path.join(tmp, 'reference.pt')
+        torch.save(to_reference(to_flat(seeded)), src)
+        t0 = time.perf_counter()
+        npz = convert_checkpoint.main([src, os.path.join(tmp, 'converted.npz')])
+        sec5 = time.perf_counter() - t0
+        from_npz = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=npz)
+        from_pt = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=src)
+        for model in (from_npz, from_pt):
+            for (name, a), (_, b) in zip(model.state_dict().items(),
+                                         seeded.state_dict().items()):
+                check(torch.equal(a, b), f'convert_checkpoint: {name} differs')
+        x = seeded_images(2, 256, 17)
+        drive(lambda: from_pt.reconstruct(x), {'K1': enc + dec, 'K2': 1},
+              totals, 'reconstruct B=2 from the reference .pt')
+    log(f'command lines: train_vqgan {sec1:.2f} s, train_paintmind {sec2:.2f} s '
+        f'(loss {loss2:.4f}), generate {sec3:.2f} s, inpaint {sec4:.2f} s, '
+        f'convert_checkpoint {sec5:.2f} s (each including its model set-up, '
+        f'data and file writes; host clock); native loader: '
+        f'{"driven" if NATIVE_LOADER else "not driven (no libjpeg headers)"}')
 
 
 # the bf16 attention kernels, which must run their products on the tensor cores
@@ -1736,6 +1986,7 @@ def main():
     totals = {name: 0 for name in KERNEL_COUNTERS}
     phase('stage 1', stage1, totals)
     phase('tiny pipeline', tiny_pipeline, totals)
+    phase('512²', variant_512, totals)
     serving = phase('stage 2', stage2, totals)
     serving.to('cpu')  # out of the later phases' peak memory
     before = torch.cuda.memory_allocated()
@@ -1750,6 +2001,7 @@ def main():
     trained = phase('training', training, totals)
     trained.to('cpu')  # out of the stage-1 phase's peak memory
     stage1_parts = phase('stage-1 training', stage1_training, totals)
+    phase('command lines', command_lines, totals)
     for name, n in totals.items():
         check(n > 0, f'{name} never launched on the main path')
     phase('profiles', profiles, serving.to('cuda'), trained.to('cuda'),

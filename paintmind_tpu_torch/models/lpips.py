@@ -95,6 +95,29 @@ def _unit_normalize(x, eps=1e-10):
     return x / (torch.sqrt(torch.sum(torch.square(x), dim=1, keepdim=True)) + eps)
 
 
+def convert_lpips(torch_lpips_module):
+    """The ``lpips`` package's ``LPIPS(net='vgg')`` module -> the JAX
+    package's LPIPS tree (``convs``: HWIO kernels and biases, ``lins``:
+    (1, 1, C, 1) kernels), as CPU tensors; the port's
+    ``paintmind_tpu/models/lpips.py:convert_lpips``."""
+    sd = {k: v.detach().cpu().clone()
+          for k, v in torch_lpips_module.state_dict().items()}
+
+    # lpips stores vgg as net.slice<N>.<torch_seq_idx>.*; order numerically
+    def sort_key(k):
+        parts = k.split('.')
+        return (int(parts[1][len('slice'):]), int(parts[2]))
+
+    slice_keys = sorted((k for k in sd
+                         if k.startswith('net.slice') and k.endswith('.weight')),
+                        key=sort_key)
+    convs = [{'kernel': sd[k].permute(2, 3, 1, 0).contiguous(),
+              'bias': sd[k.replace('.weight', '.bias')]} for k in slice_keys]
+    lins = [{'kernel': sd[f'lin{i}.model.1.weight'].permute(2, 3, 1, 0)
+             .contiguous()} for i in range(len(TAP_CHANNELS))]
+    return {'convs': convs, 'lins': lins}
+
+
 def load_lpips(path, *, device='cuda'):
     """An LPIPS module from the JAX package's ``.npz`` (``convs/<i>/kernel``,
     ``convs/<i>/bias``, ``lins/<i>/kernel``)."""

@@ -299,9 +299,16 @@ def _remask_by_rank(scores, ids_filled, n_masked, mask_token_id):
                                   device=ids_filled.device), ids_filled)
 
 
+# calls of the sort route, which only the 512² variant (L = 4096) takes;
+# the smoke run reads it to show that route ran on the card
+sort_remasks = 0
+
+
 def _remask_by_sort(scores, ids_filled, n_masked, mask_token_id):
     """The same re-mask by a stable descending sort (``torch.topk`` does not
     promise lower-index-first on ties), for L > 2048."""
+    global sort_remasks
+    sort_remasks += 1
     l = scores.shape[1]
     order = torch.sort(scores, dim=1, descending=True, stable=True).indices
     ranked = torch.gather(ids_filled, 1, order)
@@ -651,9 +658,11 @@ class Pipeline(nn.Module):
     # -- checkpointing ---------------------------------------------------
 
     def from_pretrained(self, path):
+        """Weights from the JAX package's ``.npz`` or a reference ``.pt`` /
+        ``.pth`` / ``.bin`` state dict (``utils.checkpoint.load_flat``)."""
         from ..convert.from_jax import load_jax_params
         from ..utils.checkpoint import load_flat
-        load_jax_params(self, load_flat(path))
+        load_jax_params(self, load_flat(path, 'pipeline'))
         return self
 
     def save_pretrained(self, path):

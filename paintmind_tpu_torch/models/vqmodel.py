@@ -282,9 +282,11 @@ class VQModel(nn.Module):
         return self
 
     def from_pretrained(self, path):
+        """Weights from the JAX package's ``.npz`` or a reference ``.pt`` /
+        ``.pth`` / ``.bin`` state dict (``utils.checkpoint.load_flat``)."""
         from ..convert.from_jax import load_jax_params
         from ..utils.checkpoint import load_flat
-        load_jax_params(self, load_flat(path))
+        load_jax_params(self, load_flat(path, 'vqgan'))
         return self
 
     def save_pretrained(self, path):

@@ -6,11 +6,20 @@ leaf is stored as its raw uint16 payload under the key plus ``::bf16``;
 artifacts written before that tag hold the raw two bytes as an opaque
 ``V2`` dtype.  Both come back here as ``torch.bfloat16`` tensors, and
 ``save_params`` writes the tagged form, so an archive written here loads in
-the JAX package.  Orbax directories and reference ``.pt`` files are not read
-by the port yet (ROADMAP).
+the JAX package.
+
+Reference checkpoints (``.pt``, ``.pth``, ``.bin`` state dicts, as the
+reference publishes its weights) are converted on load to the same flat
+tree (``convert/torch_weights``).  A trainer's state file
+(``<prefix>_state_<N>.pt``) is not a model checkpoint and is refused; it is
+read by the trainer's ``resume()``.  Orbax directories are not read by the
+port yet (ROADMAP).
 """
 
 from __future__ import annotations
+
+import os
+import re
 
 import numpy as np
 import torch
@@ -36,13 +45,49 @@ def to_tensor(key, value):
     return key, torch.from_numpy(np.array(arr, copy=True))
 
 
-def load_flat(path):
-    """npz -> flat {key: CPU tensor} with bf16 tags resolved."""
+_TORCH_SUFFIXES = ('.pt', '.pth', '.bin')
+_TRAIN_STATE = re.compile(r'_state_\d+\.pt$')
+
+
+def _refuse_train_state(path):
+    raise ValueError(
+        f'{path!r} is a trainer state file (model, optimizer, step and '
+        'generators), not a model checkpoint: continue the run with '
+        "VQGANTrainer/PaintMindTrainer.resume(path), or load the model from "
+        'the .npz export saved beside it')
+
+
+def load_reference(path, model):
+    """A reference state dict (``torch.load``, weights only) -> flat
+    {key: CPU tensor}, converted as ``model`` ('vqgan', 'pipeline' or
+    'cond_transformer').  A trainer's state file is refused, by its name
+    (``*_state_<N>.pt``) before it is read, or by its content."""
+    from ..convert import from_jax, torch_weights
     path = str(path)
+    if _TRAIN_STATE.search(os.path.basename(path)):
+        _refuse_train_state(path)
+    if model not in torch_weights.CONVERTERS:
+        raise ValueError(f'{path!r}: a reference state dict is converted '
+                         f"as model 'vqgan', 'pipeline' or "
+                         f"'cond_transformer', got {model!r}")
+    sd = torch_weights.load_torch_state_dict(path)
+    if 'step' in sd and 'model' in sd:
+        _refuse_train_state(path)
+    return from_jax.flatten_tree(torch_weights.CONVERTERS[model](sd))
+
+
+def load_flat(path, model=None):
+    """A checkpoint -> flat {key: CPU tensor}: an ``.npz`` archive with bf16
+    tags resolved, or a reference state dict (``.pt`` / ``.pth`` / ``.bin``)
+    converted as ``model`` (``load_reference``)."""
+    path = str(path)
+    if path.endswith(_TORCH_SUFFIXES):
+        return load_reference(path, model)
     if not path.endswith('.npz'):
         raise NotImplementedError(
-            f'{path!r}: the port reads .npz parameter archives only; orbax '
-            'directories and .pt files wait for a later slice (ROADMAP)')
+            f'{path!r}: the port reads .npz archives and reference .pt / '
+            '.pth / .bin state dicts; orbax directories wait for a later '
+            'slice (ROADMAP)')
     with np.load(path) as data:
         return dict(to_tensor(k, data[k]) for k in data.files)
 

@@ -315,9 +315,11 @@ def test_entry_points_default_to_the_card():
 
 
 def test_import_hygiene():
-    """The package (every module of it, the training, serving and tower
-    ones included) and chip_smoke.py's import block load neither JAX, optax,
-    orbax nor anything of paintmind_tpu."""
+    """The package (every module of it, the training, serving, tower, data,
+    conversion and command-line ones included) and chip_smoke.py's import
+    block load neither JAX, optax, orbax nor anything of paintmind_tpu;
+    importing them builds no native library and imports none of the
+    optional ``pandas``, ``datasets`` and ``lpips``."""
     code = (
         'import importlib, importlib.util, pkgutil, sys\n'
         'import paintmind_tpu_torch as pkg\n'
@@ -335,8 +337,21 @@ def test_import_hygiene():
         '"paintmind_tpu_torch.serving.server", '
         '"paintmind_tpu_torch.serving.__main__", '
         '"paintmind_tpu_torch.models.t5", '
-        '"paintmind_tpu_torch.models.clip"]\n'
+        '"paintmind_tpu_torch.models.clip", '
+        '"paintmind_tpu_torch.scripts.train_vqgan", '
+        '"paintmind_tpu_torch.scripts.train_paintmind", '
+        '"paintmind_tpu_torch.scripts.generate", '
+        '"paintmind_tpu_torch.scripts.convert_checkpoint", '
+        '"paintmind_tpu_torch.utils.datasets", '
+        '"paintmind_tpu_torch.utils.wds", '
+        '"paintmind_tpu_torch.native.fastimage", '
+        '"paintmind_tpu_torch.native.fastloader", '
+        '"paintmind_tpu_torch.convert.torch_weights", '
+        '"paintmind_tpu_torch.convert.resolution"]\n'
         'bad += [m for m in need if m not in sys.modules]\n'
+        'bad += [m for m in ("pandas", "datasets", "lpips") if m in sys.modules]\n'
+        'fi = sys.modules["paintmind_tpu_torch.native.fastimage"]\n'
+        'bad += ["native library touched"] if (fi._lib, fi._error) != (None, None) else []\n'
         'print(len(sys.modules), bad)\n'
         'sys.exit(1 if bad else 0)\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}

@@ -150,5 +150,7 @@ def test_npz_bf16_tags_and_fp16(tmp_path, rng):
     np.savez(raw, a=np.asarray(tree['a']).view(np.uint16).view('V2'))
     np.testing.assert_array_equal(load_flat(raw)['a'].float().numpy(),
                                   np.asarray(tree['a'], np.float32))
+    # reference .pt state dicts are converted on load (test_torch_convert.py);
+    # an orbax directory is refused
     with pytest.raises(NotImplementedError):
-        load_flat(str(tmp_path / 'model.pt'))
+        load_flat(str(tmp_path / 'orbax_checkpoint'))
