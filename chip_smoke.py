@@ -32,6 +32,16 @@ exits non-zero with no result line:
      weights, bf16) runs a 16-step ``generate`` at B = 8, the same with
      classifier-free guidance, and an ``inpaint``; the launch counters must
      show each kernel on that path, at the expected counts;
+  5b. the MoE family at the full width of ``paintmindv1-moe`` (8 experts,
+     top-2, seeded stage-2 weights): the routed layer alone at T = 8192
+     (gather against dense, card against CPU, a second run bit-equal); a
+     fp32 ``generate`` through the kernels against the plain attention;
+     bf16 ``generate`` unguided and guided (two passes), timed, and an
+     ``inpaint``; three requests through a ``GenerationEngine``, bit-equal
+     to ``Pipeline.generate`` of the padded batch; a training microbatch
+     with the kernels and with the plain attention (router and expert
+     gradients compared) and three timed Lion updates with the routing
+     metrics;
   6. serving: ``make_server`` over a ``GenerationEngine`` over a
      full-width bf16 ``paintmindv1`` with a full-width flan-t5-large text
      tower (seeded random weights): one concurrent HTTP burst of prompted
@@ -43,13 +53,13 @@ exits non-zero with no result line:
   7. stage-2 training at the same width (fp32 master weights, bf16
      compute): one microbatch of B = 8 through ``pipeline_loss`` and
      ``backward()`` with the kernels and with the plain attention, loss and
-     gradients compared; its launch counts without and with remat; six
+     gradients compared; its launch counts without and with remat; three
      updates of the step function (Lion, dropout on, two microbatches
      each), timed; a short ``PaintMindTrainer.train()`` with ``save()``,
      ``resume('auto')`` into a second trainer and one ``evaluate()``;
      then stage-1 (VQGAN) training at vit-s-vqgan width from the shipped
      weights: one microbatch's G loss and gradients with the kernels and
-     with the plain versions, five timed updates of
+     with the plain versions, four timed updates of
      ``make_vqgan_train_step`` (share_forward, two microbatches, EMA) with
      their launch counts and peak memory, and a ``VQGANTrainer.train()``
      with ``save()``, ``resume('auto')`` and one ``evaluate()``; then the
@@ -57,7 +67,8 @@ exits non-zero with no result line:
      ``train_vqgan`` -> ``train_paintmind`` on its export -> ``generate``
      (and ``--mode inpaint``) on that export, and ``convert_checkpoint`` of
      a seeded reference-layout ``.pt``;
-  8. ``torch.profiler`` windows over one unguided ``generate``, one stage-2
+  8. ``torch.profiler`` windows (device activity only) over one unguided
+     ``generate`` of paintmindv1 and one of paintmindv1-moe, one stage-2
      training microbatch and one stage-1 microbatch: the ten device
      operations with the most time, and the device's busy share of each
      window (report only);
@@ -94,6 +105,7 @@ from paintmind_tpu_torch.models import quantize as tq
 from paintmind_tpu_torch.models import vqmodel as tvm
 from paintmind_tpu_torch.models.pipeline import (
     _transformer_logits, ids_to_tokens, pipeline_loss)
+from paintmind_tpu_torch.nn.core import init_module_
 from paintmind_tpu_torch.ops import _build
 from paintmind_tpu_torch.ops import flash_attention as fa
 from paintmind_tpu_torch.ops import sampling as sm
@@ -294,8 +306,9 @@ def check_k4(g):
     shares the kernel's lse: <= 1e-4 (measured 4e-6).
     ``torch.autograd.grad`` through ``flash_attention`` must give the bits
     of a direct K4 call, and a second direct call the same bits again.
-    Times the training shapes (``ATTN_CASES``: stage-2 and VQGAN at head dim
-    64, VQGAN at 128 and 32; the ragged cases checked only); the result line
+    Times the training shapes in bf16 (``ATTN_CASES``: stage-2 and VQGAN at
+    head dim 64, VQGAN at 128 and 32; the ragged cases and fp32, the gates'
+    reference path, checked only); the result line
     carries the stage-2 path's most frequent call, stage-2 self-attention in
     bf16, beside the backward of ``F.scaled_dot_product_attention`` on a
     retained graph."""
@@ -336,7 +349,7 @@ def check_k4(g):
             line = (f'K4 {label} B={b} N={n} M={m} H={h} D={d} {str(dtype)[6:]}: '
                     f'mean_rel_err dq={errs[0]:.3e} dk={errs[1]:.3e} '
                     f'dv={errs[2]:.3e} max_abs_err={max_abs:.3e}{tiled}')
-            if timed:
+            if timed and dtype == torch.bfloat16:  # fp32 K4 is the gates' path
                 ms = time_ms(lambda: fa.flash_attention_backward(
                     q, k, v, go, scale, lse), 10)
                 plain_ms = time_ms(lambda: fa.flash_attention_backward_plain(
@@ -802,6 +815,308 @@ def stage2(totals):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the MoE stage-2 family (paintmindv1-moe)
+# ---------------------------------------------------------------------------
+
+def moe_layer(g):
+    """The routed layer alone at the sampler's size: T = 8192 tokens
+    (B = 8 × 1024), D = 1024, E = 8 experts of SwiGLU hidden 2736, top-2,
+    capacity factor 1.25 (2560 slots an expert), seeded weights, N(0, 1)
+    tokens.  Gates: 'gather' against 'dense' in fp32 (TF32 off) gives the
+    same dropped share and expert load and y within 1e-5 max abs; in bf16
+    within 1e-2 max abs (the JAX package's ``test_gather_dispatch_bf16``
+    tolerance); the card against the CPU in fp32: the routing decisions
+    (expert and kept, per assignment) agree on >= 0.999 of them, y within
+    1e-4 max abs on the tokens whose assignments all agree; a second run
+    on the card gives the same bits, fp32 and bf16."""
+    from paintmind_tpu_torch.nn import moe as tmoe
+    d, e, t = 1024, 8, 8192
+    layer = tmoe.MoESwiGLU(d, 4096, e, device='cuda')
+    init_module_(layer, g)
+    layer.experts.w12.init_weights_(g)
+    layer.experts.w3.init_weights_(g)
+    x = torch.randn(t, d, device='cuda', generator=g)
+    cap = tmoe.capacity(t, 2, e, 1.25)
+    check(cap == 2560, f'capacity {cap}, expected 2560')
+    with torch.no_grad():
+        out = {(dt, disp): tmoe.moe_swiglu(layer, x.to(dt), 2, 1.25, disp)
+               for dt in (torch.float32, torch.bfloat16)
+               for disp in ('gather', 'dense')}
+        again = {dt: tmoe.moe_swiglu(layer, x.to(dt), 2, 1.25, 'gather')[0]
+                 for dt in (torch.float32, torch.bfloat16)}
+        route = tmoe.route(layer, x, 2, 1.25)
+        cpu = layer.to('cpu')
+        y_cpu, aux_cpu = tmoe.moe_swiglu(cpu, x.cpu(), 2, 1.25, 'gather')
+        route_cpu = tmoe.route(cpu, x.cpu(), 2, 1.25)
+        del cpu
+    (yg, ag), (yd, ad) = out[torch.float32, 'gather'], out[torch.float32, 'dense']
+    err32 = (yg - yd).abs().max().item()
+    check(err32 <= 1e-5 and ag['dropped'].item() == ad['dropped'].item()
+          and torch.equal(ag['expert_load'], ad['expert_load']),
+          f'MoE layer fp32 gather vs dense: max abs {err32}')
+    yg16, yd16 = out[torch.bfloat16, 'gather'][0], out[torch.bfloat16, 'dense'][0]
+    err16 = (yg16.float() - yd16.float()).abs().max().item()
+    check(yg16.dtype == torch.bfloat16 and err16 <= 1e-2,
+          f'MoE layer bf16 gather vs dense: max abs {err16}')
+    check(torch.equal(again[torch.float32], yg)
+          and torch.equal(again[torch.bfloat16], yg16),
+          'MoE layer: a second run gave other bits')
+    idx, keep = route[3], route[5]
+    same = (idx.cpu() == route_cpu[3]) & (keep.cpu() == route_cpu[5])
+    agree = same.float().mean().item()
+    rows = same.all(-1)
+    err_cpu = (yg.cpu()[rows] - y_cpu[rows]).abs().max().item()
+    check(agree >= 0.999 and err_cpu <= 1e-4,
+          f'MoE layer card vs CPU: routing agrees on {agree}, y max abs '
+          f'{err_cpu} where it agrees')
+    log(f'MoE layer T={t} D={d} E={e} top-2 cf 1.25 (capacity {cap}): '
+        f'gather vs dense fp32 max abs {err32:.3e}, bf16 {err16:.3e}; card vs '
+        f'CPU fp32: routing agrees on {agree:.6f} of the assignments, y max '
+        f'abs {err_cpu:.3e} on the {int(rows.sum())} tokens that agree; '
+        f'dropped {ag["dropped"].item():.5f} (CPU {aux_cpu["dropped"].item():.5f}), '
+        f'expert load {" ".join(f"{v:.4f}" for v in ag["expert_load"].tolist())}; '
+        f'a second run bit-equal')
+
+
+def moe_phase(totals):
+    """The MoE stage-2 family at the full width of ``paintmindv1-moe`` (12
+    layers, dim 1024, 16 heads of 64, 8 experts of SwiGLU hidden 2736,
+    top-2, capacity factor 1.25; seeded stage-2 weights over the shipped
+    tokenizer).  The routed layer alone (``moe_layer``); a fp32
+    ``generate`` at B = 2 (4 steps, top-k 5) through the kernels and
+    through the plain attention, K3 on one seed in both: ids agree >= 0.999,
+    image MAE <= 1e-3 (phase 4's gates); bf16 ``generate`` at B = 8, 16
+    steps, top-k 5, unguided and guided at 3.0 (two passes, logits mixed),
+    each run three times with its launches counted (a warm-up first),
+    images/s from the median, and an ``inpaint``; three seeded requests
+    through a ``GenerationEngine`` (max_batch 4, one padded batch) whose
+    images equal ``Pipeline.generate`` of the same padded batch bit for
+    bit; a 2-step ``generate`` of ``paintmindv1-moe-4e`` (4 experts); then
+    training with fp32 masters and bf16 compute: one B = 8
+    microbatch of ``pipeline_loss(return_aux=True)`` and ``backward()``
+    with the kernels (twice: bit-equal) and with the plain attention in
+    bf16 and in fp32, gradients (router and experts included) compared as
+    phase 7 compares them; three timed Lion updates of two microbatches
+    (dropout 0.1) with their routing metrics and peak memory.  No trainer
+    state file at this width (~11 GB of parameters and moments): the
+    trainer's resume is held on the CPU (``tests/test_torch_moe.py``).
+    Returns the bf16 pipeline for the profiles phase."""
+    from paintmind_tpu_torch.models import pipeline as tpl
+    from paintmind_tpu_torch.serving.engine import fold_seeds
+    g = torch.Generator(device='cuda').manual_seed(8)
+    moe_layer(g)
+
+    def pipeline(dtype):
+        return pt.create_model('pipeline', 'paintmindv1-moe', pretrained=False,
+                               stage1_checkpoint_path=ASSET, text_encoder=None,
+                               compute_dtype=dtype, seed=3)
+
+    pipe = pipeline(None)
+    cfg = pipe.config
+    depth, enc, dec = cfg.depth, cfg.vqc.enc.depth, cfg.vqc.dec.depth
+    n_exp = sum(p.numel() for n, p in pipe.named_parameters() if 'experts' in n)
+    log(f'MoE: paintmindv1-moe dim={cfg.dim} depth={depth} '
+        f'heads={cfg.num_head} experts={cfg.num_experts} top-{cfg.num_selected} '
+        f'cf {cfg.capacity_factor}, {sum(p.numel() for p in pipe.transformer.parameters()) / 1e9:.3f} '
+        f'B stage-2 parameters, {n_exp / 1e9:.3f} B of them in experts')
+    ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
+    init = torch.full((2, cfg.num_tokens), cfg.mask_token_id,
+                      dtype=torch.int32, device='cuda')
+    runs = {}
+    for backend in (None, 'plain'):
+        gen = torch.Generator(device='cuda').manual_seed(9)
+        _, shown = tpl.generate_ids(pipe, init, ctx[:2], cfg=cfg, timesteps=4,
+                                    topk=5, backend=backend, generator=gen)
+        runs[backend] = (shown[-1], pipe.vqgan.decode_from_indice(
+            shown[-1], backend=backend))
+    agree = (runs[None][0] == runs['plain'][0]).float().mean().item()
+    mae = (runs[None][1] - runs['plain'][1]).abs().mean().item()
+    check(agree >= 0.999 and mae <= 1e-3,
+          f'MoE generate kernels vs plain attention: ids agree {agree}, MAE {mae}')
+    log(f'MoE generate fp32 B=2 4 steps, kernels vs plain attention (K3 on '
+        f'one seed in both): ids agree {agree:.5f}, image MAE {mae:.3e}')
+    del runs
+
+    half = pipeline(torch.bfloat16)
+    steps = 16
+    half.generate(text=ctx, timesteps=2, topk=5, decode_steps='final',
+                  generator=g)  # warm-up: cuBLAS, the allocator
+    torch.cuda.reset_peak_memory_stats()
+    rates = {}
+    for what, kw, per_layer in (('unguided', {}, 2),
+                                ('guided', {'guidance_scale': 3.0}, 4)):
+        secs = []
+        for i in range(3):
+            imgs, s = drive(lambda: half.generate(
+                text=ctx, timesteps=steps, topk=5, decode_steps='final',
+                generator=g, **kw)[-1],
+                {'K1': depth * per_layer * steps + dec, 'K3': steps}, totals,
+                f'MoE generate B=8 {steps} steps bf16 {what} run {i}')
+            check_images(imgs, f'MoE {what} generate')
+            secs.append(s)
+        rates[what] = 8 / float(np.median(secs))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    painted, _ = drive(lambda: half.inpaint(imgs, (64, 64, 128, 128), text=ctx,
+                                            timesteps=4, generator=g),
+                       {'K1': enc + depth * 2 * 4 + dec, 'K2': 1, 'K3': 4},
+                       totals, 'MoE inpaint B=8 4 steps bf16')
+    check_images(painted, 'MoE inpaint')
+    log(f'MoE generate bf16 B=8 {steps} steps (incl. decode): '
+        f'{rates["unguided"]:.3f} images/s unguided, {rates["guided"]:.3f} '
+        f'images/s guided at 3.0 (two passes; median of 3 after a warm-up), '
+        f'peak device memory {peak:.2f} GiB; {CARD}')
+
+    # three seeded requests: one batch of 4, the pad row a copy of the first
+    seeds = [11, 12, 13]
+    with GenerationEngine(half, max_batch=4, max_wait_ms=200) as eng:
+        def served():
+            futs = [eng.submit(GenerateRequest(context=ctx[i], timesteps=steps,
+                                               topk=5, seed=seeds[i]))
+                    for i in range(3)]
+            return [f.result(timeout=600) for f in futs]
+        got, _ = drive(served, {'K1': depth * 2 * steps + dec, 'K3': steps},
+                       totals, 'MoE engine: 3 seeded requests, one batch of 4')
+        stats = eng.stats()
+    check(stats['batches'] == 1 and stats['padded_slots'] == 1,
+          f'MoE engine batches: {stats}')
+    direct = half.generate(
+        text=torch.cat([ctx[:3], ctx[:1]]), timesteps=steps, topk=5,
+        temperature=np.ones(4, np.float32), decode_steps='final',
+        generator=torch.Generator(device='cuda').manual_seed(
+            fold_seeds(seeds)))[-1].float().cpu().numpy()
+    check(all(np.array_equal(got[i], direct[i]) for i in range(3)),
+          'MoE engine: images differ from Pipeline.generate of its padded batch')
+    log('MoE engine: three served images equal Pipeline.generate of the '
+        'padded batch, bit for bit')
+    half.to('cpu')
+
+    # the 4-expert version builds and samples at full width too
+    four = pt.create_model('pipeline', 'paintmindv1-moe-4e', pretrained=False,
+                           stage1_checkpoint_path=ASSET, text_encoder=None,
+                           compute_dtype=torch.bfloat16, seed=4)
+    check(four.config.num_experts == 4
+          and four.transformer.layers[0].ffnet.experts.w12.weight.shape[0] == 4,
+          'paintmindv1-moe-4e is not a 4-expert pipeline')
+    imgs4, _ = drive(lambda: four.generate(text=ctx, timesteps=2, topk=5,
+                                           decode_steps='final',
+                                           generator=g)[-1],
+                     {'K1': depth * 2 * 2 + dec, 'K3': 2}, totals,
+                     'paintmindv1-moe-4e generate B=8 2 steps bf16')
+    check_images(imgs4, 'paintmindv1-moe-4e generate')
+    del four, imgs4
+
+    # training: fp32 masters, bf16 compute
+    trainable = pipe.trainable_parameters()
+    for p in trainable:
+        p.requires_grad_(True)
+    imgs16 = seeded_images(16, 256, 13)
+    ctx16 = torch.randn(16, 77, cfg.t5_dim, device='cuda', generator=g)
+    imgs, tctx = imgs16[:8].bfloat16(), ctx16[:8].bfloat16()
+    noise = torch.rand(8, cfg.num_tokens, device='cuda', generator=g)
+    pipe.eval()  # dropout off for the comparisons
+    named = dict(pipe.named_parameters())
+    watched = ['mask_token', 'transformer.token_proj.weight',
+               'transformer.to_logits.weight']
+    watched += [f'transformer.layers.{i}.{w}'
+                for i in (0, depth - 1)
+                for w in ('attn1.to_q.weight', 'attn2.to_v.weight',
+                          'ffnet.router.weight', 'ffnet.experts.w12.weight',
+                          'ffnet.experts.w3.weight')]
+
+    def grads():
+        return {n: named[n].grad.clone() for n in watched}
+
+    loss_w, _ = loss_and_grads(pipe, imgs, tctx, noise)  # warm-up
+    grads_w = grads()
+    (loss_k, aux_k), _ = drive(lambda: loss_and_grads(pipe, imgs, tctx, noise),
+                               {'K1': enc + 2 * depth, 'K2': 1,
+                                'K4': 2 * depth}, totals,
+                               'MoE train microbatch B=8 forward+backward')
+    for p in trainable:
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              'MoE: a trainable parameter has no finite gradient')
+    grads_k = grads()
+    check(loss_w == loss_k and all(torch.equal(grads_w[n], grads_k[n])
+                                   for n in watched),
+          f'MoE: two runs of one microbatch differ: loss {loss_w} vs {loss_k}')
+    del grads_w
+    plain = dict(backend='plain', vq_backend='plain')
+    loss_p, aux_p = loss_and_grads(pipe, imgs, tctx, noise, **plain)
+    grads_p = grads()
+    loss_f, _ = loss_and_grads(pipe, imgs.float(), tctx.float(), noise,
+                               **plain)
+    grads_f = grads()
+    log(f'MoE train microbatch: loss kernels {loss_k:.5f}, plain {loss_p:.5f}, '
+        f'plain fp32 {loss_f:.5f}; lb loss {aux_k["lb loss"].item():.4f} '
+        f'(plain {aux_p["lb loss"].item():.4f}), dropped '
+        f'{aux_k["dropped"].item():.5f} ({aux_p["dropped"].item():.5f}); a '
+        f'second run bit-equal; gradient mean rel err (kernels bf16 vs fp32 / '
+        f'plain bf16 vs fp32 / kernels vs plain):')
+    for n in watched:
+        e_k, e_p, e_kp = (mean_rel(grads_k[n], grads_f[n]),
+                          mean_rel(grads_p[n], grads_f[n]),
+                          mean_rel(grads_k[n], grads_p[n]))
+        log(f'  {n.replace("transformer.", ""):34s} {e_k:.3e} / {e_p:.3e} / '
+            f'{e_kp:.3e}')
+        # phase 7's gate: the kernels no farther from fp32 than the plain
+        # bf16 path.  Its sanity caps are wider here: a token whose routing
+        # flips between two paths takes its whole FFN term to another
+        # expert (measured on an H100: up to 0.19 / 0.20 / 0.16, layer 11's
+        # expert w12; the dense model's largest is 0.17 / 0.17 / 0.11)
+        check(e_k <= 1.25 * e_p + 0.01 and e_k <= 0.3 and e_kp <= 0.25,
+              f'MoE gradient of {n}: rel err kernels {e_k}, plain {e_p}, '
+              f'between them {e_kp}')
+    check(abs(loss_k - loss_f) <= 2e-3 and abs(loss_k - loss_p) <= 2e-3,
+          f'MoE loss kernels {loss_k}, plain {loss_p}, fp32 {loss_f}')
+    del grads_k, grads_p, grads_f
+    pipe.zero_grad(set_to_none=True)
+
+    opt = pt.optim.lion(trainable, 1e-4, (0.9, 0.99), weight_decay=0.05,
+                        max_grad_norm=1.0)
+    step = make_pipeline_train_step(pipe, opt, grad_accum=2,
+                                    compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for i in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def update():
+            start.record()
+            m = step(imgs16, ctx16, 0.6)
+            end.record()
+            return m
+        m, _ = drive(update, {'K1': 2 * (enc + 2 * depth), 'K2': 2,
+                              'K4': 4 * depth}, totals,
+                     f'MoE train update {i} B=16 grad_accum=2')
+        metrics.append({n: v.float().cpu() for n, v in m.items()})
+        times.append(start.elapsed_time(end) / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m['loss']) for m in metrics]
+    check(all(math.isfinite(x) for x in losses), f'MoE losses {losses}')
+    check(abs(losses[0] - math.log(8192)) <= 0.5,
+          f'MoE first loss {losses[0]} is not near ln 8192')
+    last = metrics[-1]
+    load = last['expert load']
+    check(0.0 <= float(last['dropped']) <= 1.0
+          and math.isfinite(float(last['lb loss']))
+          and math.isfinite(float(last['router z']))
+          and 0.0 <= float(load.min()) <= float(load.max()) <= 1.0,
+          f'MoE routing metrics {last}')
+    sec = float(np.median(times[1:]))
+    log(f'MoE train updates (Lion, lr 1e-4, dropout {cfg.dropout}, 2 '
+        f'microbatches of B=8): losses {" ".join(f"{x:.4f}" for x in losses)}; '
+        f'lb loss {float(last["lb loss"]):.4f}, router z '
+        f'{float(last["router z"]):.4f}, dropped {float(last["dropped"]):.5f}, '
+        f'expert load max {float(load.max()):.4f} min {float(load.min()):.4f}; '
+        f'{sec:.4f} s per update (median of the 2 CUDA-event timed updates '
+        f'after the first) = {16 / sec:.2f} images/s, peak device memory '
+        f'{peak:.2f} GiB; {CARD}')
+    del opt, step, pipe
+    return half
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the serving path (engine, HTTP server, T5 and CLIP towers)
 # ---------------------------------------------------------------------------
 
@@ -1133,11 +1448,14 @@ def text_embedder(captions):
 
 
 def loss_and_grads(pipe, imgs, ctx, noise, **kw):
+    """One microbatch's loss (a float) and routing metrics (``{}`` for the
+    dense model); its gradients are left in ``.grad``."""
     pipe.zero_grad(set_to_none=True)
-    loss = pipeline_loss(pipe, imgs, ctx, 0.6, noise=noise, **kw)
+    loss, aux = pipeline_loss(pipe, imgs, ctx, 0.6, noise=noise,
+                              return_aux=True, **kw)
     loss.backward()
     torch.cuda.synchronize()
-    return loss.item()
+    return loss.item(), aux
 
 
 def training(totals):
@@ -1171,12 +1489,12 @@ def training(totals):
     def grads():
         return {n: named[n].grad.clone() for n in watched}
 
-    loss_w = loss_and_grads(pipe, imgs, ctx, noise)  # warm-up: cuBLAS, allocator
+    loss_w, _ = loss_and_grads(pipe, imgs, ctx, noise)  # warm-up: cuBLAS, allocator
     grads_w = grads()
-    loss_k, _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise),
-                      {'K1': enc + 2 * depth, 'K2': 1, 'K3': 0,
-                       'K4': 2 * depth}, totals,
-                      'train microbatch B=8 forward+backward')
+    (loss_k, _), _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise),
+                           {'K1': enc + 2 * depth, 'K2': 1, 'K3': 0,
+                            'K4': 2 * depth}, totals,
+                           'train microbatch B=8 forward+backward')
     for p in trainable:
         check(p.grad is not None and bool(torch.isfinite(p.grad).all())
               and bool(p.grad.abs().max() > 0),
@@ -1192,22 +1510,23 @@ def training(totals):
     loss_and_grads(pipe, imgs, ctx, noise, remat=True)
     log(f'first remat call: {time.perf_counter() - t0:.3f} s (one-time '
         f'set-up inside torch.utils.checkpoint included)')
-    loss_r, _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise,
-                                             remat=True),
-                      {'K1': enc + 4 * depth, 'K2': 1, 'K3': 0,
-                       'K4': 2 * depth}, totals,
-                      'train microbatch B=8 forward+backward, remat')
+    (loss_r, _), _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise,
+                                                  remat=True),
+                           {'K1': enc + 4 * depth, 'K2': 1, 'K3': 0,
+                            'K4': 2 * depth}, totals,
+                           'train microbatch B=8 forward+backward, remat')
     check(loss_r == loss_k and all(torch.equal(named[n].grad, grads_k[n])
                                    for n in watched),
           f'remat changed the loss or the gradients: {loss_r} vs {loss_k}')
     plain = dict(backend='plain', vq_backend='plain')
     unused = dict.fromkeys(totals, 0)
-    loss_p, _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise, **plain),
-                      {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0}, unused,
-                      "train microbatch B=8, backend='plain'")
+    (loss_p, _), _ = drive(lambda: loss_and_grads(pipe, imgs, ctx, noise,
+                                                  **plain),
+                           {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0}, unused,
+                           "train microbatch B=8, backend='plain'")
     grads_p = grads()
     # the yardstick for both bf16 runs: the plain attention in fp32
-    loss_f = loss_and_grads(pipe, imgs.float(), ctx.float(), noise, **plain)
+    loss_f, _ = loss_and_grads(pipe, imgs.float(), ctx.float(), noise, **plain)
     grads_f = grads()
     log(f'train microbatch: loss kernels {loss_k:.5f}, plain {loss_p:.5f}, '
         f'plain fp32 {loss_f:.5f}, ln(8192) = {math.log(8192):.5f}')
@@ -1231,14 +1550,14 @@ def training(totals):
     del grads_k
     pipe.zero_grad(set_to_none=True)
 
-    # 6.3: six updates on one fixed batch, two microbatches of 8 each
+    # 6.3: three updates on one fixed batch, two microbatches of 8 each
     opt = pt.optim.lion(trainable, 1e-4, (0.9, 0.99), weight_decay=0.05,
                         max_grad_norm=1.0)
     step = make_pipeline_train_step(pipe, opt, grad_accum=2,
                                     compute_dtype=torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    for i in range(6):
+    for i in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
 
@@ -1259,10 +1578,8 @@ def training(totals):
     sec = float(np.median(times[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f'train updates (Lion, lr 1e-4, dropout {cfg.dropout}, 2 microbatches '
-        f'of B=8): losses {" ".join(f"{x:.4f}" for x in losses)} (with P and '
-        f'dS kept in fp32 by the CUDA-core kernels: 9.1262 first, 8.2962 '
-        f'last); '
-        f'{sec:.4f} s per update = {16 / sec:.2f} images/s (median of 5 '
+        f'of B=8): losses {" ".join(f"{x:.4f}" for x in losses)}; '
+        f'{sec:.4f} s per update = {16 / sec:.2f} images/s (median of the 2 '
         f'CUDA-event timed updates after the first), peak device memory '
         f'{peak:.2f} GiB; {CARD}')
 
@@ -1525,13 +1842,14 @@ def stage1_training(totals):
         plain bf16 path: bf16 activations through 8 layers each way leave
         either bf16 path some percent from fp32, and the gate is that the
         kernels are no farther from it than the plain path;
-      * five updates of ``make_vqgan_train_step`` (share_forward,
+      * four updates of ``make_vqgan_train_step`` (share_forward,
         ``grad_accum=2``, EMA 0.999), timed (CUDA events) as the median
         after the first, each launching K1 and K4 once per layer and
         microbatch (32 each) and K2 once per encode (2); peak device memory;
       * a ``VQGANTrainer.train()`` of three updates with ``save()``,
         ``resume('auto')`` into a second trainer (whose next update on one
-        batch must give the first trainer's loss, bit for bit) and one
+        batch must give the first trainer's loss, bit for bit, both with
+        cuDNN's deterministic algorithms) and one
         ``evaluate()`` whose PSNR is finite."""
     from paintmind_tpu_torch.models import discriminator as tdisc
     from paintmind_tpu_torch.models import lpips as tlpips
@@ -1591,7 +1909,7 @@ def stage1_training(totals):
     del grads_k, grads_p, grads_f
     vqgan.zero_grad(set_to_none=True)
 
-    # five updates of the step function, two microbatches of 8 each
+    # four updates of the step function, two microbatches of 8 each
     def tx(params):
         return pt.optim.adam(params, 1e-4, (0.9, 0.99), 1.0)
 
@@ -1600,7 +1918,7 @@ def stage1_training(totals):
                                  seed=2)
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    for i in range(5):
+    for i in range(4):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
 
@@ -1625,7 +1943,7 @@ def stage1_training(totals):
             f'{m["per loss"]:.4f} g {m["g loss"]:.4f} d {m["d loss"]:.4f}'
             for m in losses))
     log(f'stage-1 update: {sec:.4f} s per update = {16 / sec:.2f} images/s '
-        f'(median of 4 CUDA-event timed updates after the first), peak device '
+        f'(median of the 3 CUDA-event timed updates after the first), peak device '
         f'memory {peak:.2f} GiB; {CARD}')
     del step
 
@@ -1648,8 +1966,15 @@ def stage1_training(totals):
         second_vq = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=ASSET)
         second = trainer_for(second_vq).resume('auto')
         batch = next(iter(first.train_dl))
-        want = first.train_step(batch)['loss'].item()
-        got = second.train_step(batch)['loss'].item()
+        # both next steps with cuDNN's deterministic algorithms: otherwise
+        # the discriminator's convolution gradients may be summed in another
+        # order (one run on an H100 differed in the loss's last bit)
+        torch.backends.cudnn.deterministic = True
+        try:
+            want = first.train_step(batch)['loss'].item()
+            got = second.train_step(batch)['loss'].item()
+        finally:
+            torch.backends.cudnn.deterministic = False
         check(second.steps == 4 and got == want,
               f"resumed VQGANTrainer: next loss {got}, the first trainer's {want}")
         del second, second_vq
@@ -1876,7 +2201,9 @@ def profile_window(fn, what):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host operators' events would only slow the
+    # trace's processing (a window holds some 20000 device operations)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1900,18 +2227,22 @@ def profile_window(fn, what):
         log(f'  {calls:6d} {ms:10.3f}  {name[:200]}')
 
 
-def profiles(serving, trained, stage1):
+def profiles(serving, trained, stage1, moe):
     """Where the time of one unguided ``generate`` (the stage-2 phase's
-    bf16 pipeline), of one stage-2 training microbatch (the training phase's
-    pipeline) and of one stage-1 microbatch's G loss and backward (the
-    stage-1 training phase's VQGAN, discriminator and LPIPS) goes on the
-    device."""
+    bf16 pipeline, and the MoE phase's bf16 ``paintmindv1-moe``), of one
+    stage-2 training microbatch (the training phase's pipeline) and of one
+    stage-1 microbatch's G loss and backward (the stage-1 training phase's
+    VQGAN, discriminator and LPIPS) goes on the device."""
     cfg = serving.config
     g = torch.Generator(device='cuda').manual_seed(0)
     ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
     profile_window(lambda: serving.generate(
         text=ctx, timesteps=16, topk=5, decode_steps='final', generator=g),
         'generate B=8 16 steps bf16')
+    profile_window(lambda: moe.generate(
+        text=ctx, timesteps=16, topk=5, decode_steps='final', generator=g),
+        'MoE generate B=8 16 steps bf16 (paintmindv1-moe)')
+    moe.to('cpu')
     trained.eval()
     imgs = seeded_images(8, 256, 3).bfloat16()
     ctx = ctx.bfloat16()
@@ -1989,6 +2320,7 @@ def main():
     phase('512²', variant_512, totals)
     serving = phase('stage 2', stage2, totals)
     serving.to('cpu')  # out of the later phases' peak memory
+    moe = phase('MoE', moe_phase, totals)  # returned on the host
     before = torch.cuda.memory_allocated()
     phase('serving', serving_phase, totals)
     held = torch.cuda.memory_allocated() - before
@@ -2005,7 +2337,7 @@ def main():
     for name, n in totals.items():
         check(n > 0, f'{name} never launched on the main path')
     phase('profiles', profiles, serving.to('cuda'), trained.to('cuda'),
-          stage1_parts)
+          stage1_parts, moe.to('cuda'))
 
     meta = {
         'K1': ('flash_attention_fwd', 'cuda',

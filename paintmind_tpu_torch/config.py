@@ -130,7 +130,7 @@ pipeline_v1_imgvar_config = {
 
 # Extension beyond the reference: an expert-parallel MoE stage-2 variant
 # — paintmindv1 dims with every block's SwiGLU replaced by an 8-expert top-2
-# routed pool.  Not ported yet (ROADMAP): the port's Pipeline refuses it.
+# routed pool (models/moe_transformer.py).
 pipeline_v1_moe_config = {
     **pipeline_v1_config,
     'num_experts': 8,

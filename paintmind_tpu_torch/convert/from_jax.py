@@ -9,7 +9,8 @@ tree (the tests pass that in).  Three layout differences are bridged:
     ``depth`` axis (one ``lax.scan`` over stacked weights); the port keeps an
     ``nn.ModuleList``, so leaf ``i`` of that axis goes to ``layers.{i}``;
   * linear kernels: JAX stores ``kernel`` as (in, out), torch's ``weight``
-    is (out, in);
+    is (out, in); the MoE experts' stacked kernels (E, in, out) are
+    ``StackedLinear`` weights (E, out, in);
   * LayerNorm: JAX ``scale`` / ``bias`` are torch ``weight`` / ``bias``.
 
 Every other leaf (``pos_embed``, ``codebook``, ``mask_token``) keeps its
@@ -43,6 +44,7 @@ import re
 import torch
 from torch import nn
 
+from ..nn.moe import StackedLinear
 from ..utils.checkpoint import SEP, to_numpy, to_tensor
 
 TOWER_STACK = 'blocks'  # the tower node whose leaves are depth-stacked (T5)
@@ -101,16 +103,17 @@ def _load_strict(module, sd):
 def to_flat(module):
     """The reverse bridge: ``module``'s parameters as the flat
     ``{'/'-joined key: numpy array}`` tree of the JAX package, ready for
-    ``utils.checkpoint.save_params``.  Linear ``weight`` becomes ``kernel``
-    (transposed to (in, out)), LayerNorm ``weight`` becomes ``scale``, and
+    ``utils.checkpoint.save_params``.  Linear and ``StackedLinear``
+    ``weight`` becomes ``kernel`` (its last two axes swapped), LayerNorm ``weight`` becomes ``scale``, and
     the leaves of ``layers.{i}`` are restacked along a leading depth axis.
     A bf16 leaf is its raw uint16 payload under the key plus ``::bf16``."""
     leaves, stacks = {}, {}
     for prefix, mod in module.named_modules():
         for name, value in mod.named_parameters(recurse=False):
             value = value.detach().cpu()
-            if isinstance(mod, nn.Linear) and name == 'weight':
-                name, value = 'kernel', value.t()
+            if isinstance(mod, (nn.Linear, StackedLinear)) \
+                    and name == 'weight':
+                name, value = 'kernel', value.transpose(-1, -2)
             elif isinstance(mod, nn.LayerNorm) and name == 'weight':
                 name = 'scale'
             key = SEP.join(filter(None, [*prefix.split('.'), name]))

@@ -12,7 +12,13 @@ parallel decoding.
     latent keep-mask, with the re-mask clamped to the masked count;
   * classifier-free guidance ``uncond + s·(cond − uncond)``, mixed on the
     post-LN hidden states before the shared vocab head; scalar or per-sample
-    (B,) scales and temperatures.
+    (B,) scales and temperatures;
+  * the MoE versions (``num_experts > 0``: ``paintmindv1-moe``,
+    ``paintmindv1-moe-4e``): the transformer is a ``MoECondTransformer``,
+    the loss adds the weighted routing losses, and guidance mixes the
+    **logits** of two separate passes (an expert's capacity couples the
+    tokens of a batch, so a fused [cond; uncond] pass would route
+    differently).
 
 Each step's sampling head is kernel K3 (``ops/sampling``) on the card
 ('fused' sampler) and the reference math on the CPU ('exact' sampler).
@@ -22,7 +28,7 @@ the JAX package draws.
 
 Conditioning: ``embed_text`` takes prompts, token ids or conditioning
 images through the pipeline's tower (``models/t5.py``, ``models/clip.py``),
-or precomputed (B, M, t5_dim) contexts.  Not ported yet: the MoE,
+or precomputed (B, M, t5_dim) contexts.  Not ported yet: the
 pipeline-parallel and int8 branches (ROADMAP).
 """
 
@@ -40,6 +46,7 @@ from ..config import Config, ver2cfg
 from ..ops.sampling import fused_gumbel_topk_sample
 from ..ops.sampling import gumbel_noise as _gumbel
 from . import vqmodel as vm
+from .moe_transformer import MoECondTransformer, MoECondTransformerConfig
 from .quantize import l2norm
 from .transformer import CondTransformer, CondTransformerConfig
 
@@ -64,7 +71,14 @@ class PipelineConfig:
     vqc: vm.VQModelConfig = vm.VQModelConfig()
     t5_dim: int = 1024
     normalize_sample_tokens: bool = False
-    num_experts: int = 0  # > 0: the MoE variant, not ported yet
+    # the MoE versions: num_experts > 0 routes every block's SwiGLU over an
+    # expert pool (models/moe_transformer.py)
+    num_experts: int = 0
+    num_selected: int = 2
+    capacity_factor: float = 1.25
+    moe_dispatch: str = 'auto'  # 'auto' | 'gather' | 'dense' (nn/moe.py)
+    lb_weight: float = 0.01     # Switch load-balance loss weight
+    zloss_weight: float = 1e-3  # router z-loss weight
 
     @classmethod
     def from_dict(cls, d):
@@ -77,7 +91,12 @@ class PipelineConfig:
                    t5_dim=CONTEXT_TOWERS[d['t5']],
                    normalize_sample_tokens=d.get('normalize_sample_tokens',
                                                  False),
-                   num_experts=d.get('num_experts', 0))
+                   num_experts=d.get('num_experts', 0),
+                   num_selected=d.get('num_selected', 2),
+                   capacity_factor=d.get('capacity_factor', 1.25),
+                   moe_dispatch=d.get('moe_dispatch', 'auto'),
+                   lb_weight=d.get('lb_weight', 0.01),
+                   zloss_weight=d.get('zloss_weight', 1e-3))
 
     @property
     def image_size(self):
@@ -97,11 +116,18 @@ class PipelineConfig:
 
     @property
     def tcfg(self) -> CondTransformerConfig:
-        return CondTransformerConfig(
+        kw = dict(
             in_dim=self.vqc.embed_dim, dim=self.dim, len_seq=self.num_tokens,
             dim_head=self.dim_head, mlp_dim=self.mlp_dim,
             num_head=self.num_head, depth=self.depth, dropout=self.dropout,
             context_dim=self.t5_dim, num_classes=self.vqc.n_embed)
+        if self.num_experts:
+            return MoECondTransformerConfig(
+                num_experts=self.num_experts, num_selected=self.num_selected,
+                capacity_factor=self.capacity_factor,
+                moe_dispatch=self.moe_dispatch, lb_weight=self.lb_weight,
+                zloss_weight=self.zloss_weight, **kw)
+        return CondTransformerConfig(**kw)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +167,8 @@ def masked_ce_loss(logits, labels, mask, label_smoothing=0.1):
 
 
 def pipeline_loss(pipe, img, context, mask_ratio, *, generator=None,
-                  noise=None, backend=None, vq_backend='auto', remat=False):
+                  noise=None, backend=None, vq_backend='auto', remat=False,
+                  return_aux=False):
     """Training forward -> scalar loss (reference generate.py:136-146).
     ``img``: (B, H, W, C) in [-1, 1], in the compute type; ``context``: the
     (B, M, t5_dim) text embedding or None (CFG dropout).  The VQGAN is
@@ -149,15 +176,32 @@ def pipeline_loss(pipe, img, context, mask_ratio, *, generator=None,
     detached, so the gradient reaches ``mask_token`` through the masking
     ``where`` and the transformer through its logits.  Dropout follows the
     transformer's training mode and draws from ``generator``, after the
-    masking noise (or only the dropout masks, when ``noise`` is given)."""
+    masking noise (or only the dropout masks, when ``noise`` is given).
+
+    The MoE versions add ``lb_weight · lb_loss + zloss_weight · router_z``
+    to the masked CE.  ``return_aux=True`` -> ``(loss, metrics)``: for the
+    MoE versions ``{'lb loss', 'router z', 'dropped', 'expert load'}``
+    (detached; ``expert load`` the (E,) top-1 fractions), ``{}`` for the
+    dense model."""
     with torch.no_grad():
         z_q, _, ids = pipe.vqgan.encode(img, backend=backend,
                                         vq_backend=vq_backend)
     x, mask = random_masking(z_q.detach(), pipe.mask_token, mask_ratio,
                              generator=generator, noise=noise)
-    logits = pipe.transformer(x, context, backend=backend,
-                              generator=generator, remat=remat)
-    return masked_ce_loss(logits, ids, mask)
+    out = pipe.transformer(x, context, backend=backend, generator=generator,
+                           remat=remat)
+    cfg = pipe.config
+    if not cfg.num_experts:
+        loss = masked_ce_loss(out, ids, mask)
+        return (loss, {}) if return_aux else loss
+    logits, aux = out
+    loss = (masked_ce_loss(logits, ids, mask)
+            + cfg.lb_weight * aux['lb_loss']
+            + cfg.zloss_weight * aux['router_z'])
+    if not return_aux:
+        return loss
+    # lb_loss -> 'lb loss', ...: the names the JAX package's trainer logs
+    return loss, {n.replace('_', ' '): v.detach() for n, v in aux.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +240,13 @@ def _transformer_logits(pipe, tokens, context, guidance_scale, *, cfg,
         neg_context = (neg_context.to(dtype)
                        if neg_context is not None else None)
     tr = pipe.transformer
+    if cfg.num_experts:
+        return _moe_logits(tr, tokens, context, guidance_scale, backend,
+                           neg_context)
     if guidance_scale is None or context is None:
         return tr(tokens, context, backend=backend)
     b = tokens.shape[0]
-    scale = torch.as_tensor(guidance_scale, device=tokens.device).to(tokens.dtype)
-    if scale.ndim == 1:  # per-sample (B,)
-        scale = scale[:, None, None]
+    scale = _guidance(guidance_scale, tokens)
     both = torch.cat([tokens, tokens], dim=0) if b <= 8 else None
     if neg_context is not None:
         # negative-prompt guidance: the unguided branch attends to the
@@ -225,6 +270,26 @@ def _transformer_logits(pipe, tokens, context, guidance_scale, *, cfg,
     # guidance is affine and the head is one linear map for both branches,
     # so mixing the hidden states before it equals mixing the logits
     return tr.head_project(uncond + scale * (cond - uncond))
+
+
+def _guidance(guidance_scale, tokens):
+    """The scale in the tokens' type; a per-sample (B,) one as (B, 1, 1)."""
+    scale = torch.as_tensor(guidance_scale, device=tokens.device).to(tokens.dtype)
+    return scale[:, None, None] if scale.ndim == 1 else scale
+
+
+def _moe_logits(tr, tokens, context, guidance_scale, backend, neg_context):
+    """The MoE sampler's logits: guidance mixes the **logits** of two
+    passes, the unguided one attending to ``neg_context`` (self-attending
+    when it is None).  Not the dense path's fused 2B pass nor its mixing of
+    hidden states: the capacity counts every token of a call, so a doubled
+    batch routes differently."""
+    if guidance_scale is None or context is None:
+        return tr(tokens, context, backend=backend)[0]
+    scale = _guidance(guidance_scale, tokens)
+    cond = tr(tokens, context, backend=backend)[0]
+    uncond = tr(tokens, neg_context, backend=backend)[0]
+    return uncond + scale * (cond - uncond)
 
 
 def sample_step(pipe, ids, *, context, n_masked, temperature, topk,
@@ -414,8 +479,6 @@ class Pipeline(nn.Module):
         self.config = (config if isinstance(config, PipelineConfig)
                        else PipelineConfig.from_dict(config))
         cfg = self.config
-        if cfg.num_experts:
-            raise _not_ported('the MoE stage-2 variant', 8)
         device = vm.resolve_device(device)
         self.compute_dtype = compute_dtype
 
@@ -426,8 +489,10 @@ class Pipeline(nn.Module):
             param_dtype=param_dtype, compute_dtype=compute_dtype,
             device=device)
         self.vqgan.freeze()
-        self.transformer = CondTransformer(cfg.tcfg, device=device,
-                                           dtype=param_dtype)
+        transformer = (MoECondTransformer if cfg.num_experts
+                       else CondTransformer)
+        self.transformer = transformer(cfg.tcfg, device=device,
+                                       dtype=param_dtype)
         self.mask_token = nn.Parameter(torch.empty(
             1, cfg.vqc.embed_dim, device=device, dtype=param_dtype))
         g = vm.make_generator(device, seed)
@@ -529,7 +594,8 @@ class Pipeline(nn.Module):
 
     def tokens2logits(self, tokens, context=None):
         tokens = torch.as_tensor(tokens, device=self.device)
-        return self.transformer(tokens, self.embed_text(context))
+        out = self.transformer(tokens, self.embed_text(context))
+        return out[0] if self.config.num_experts else out
 
     def forward(self, img, text=None, mask_ratio=0.75, generator=None):
         """The training loss of a batch (reference generate.py:136-146)."""

@@ -43,15 +43,19 @@ class CondTransformer(nn.Module):
         self.token_proj = Linear(cfg.in_dim, cfg.dim, **kw)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.len_seq, cfg.dim,
                                                   **kw))
-        self.layers = make_stack(cfg.depth, cfg.dim, dim_head=cfg.dim_head,
-                                 mlp_dim=cfg.mlp_dim, num_head=cfg.num_head,
-                                 cross=True, context_dim=cfg.dim,
-                                 dropout=cfg.dropout, **kw)
+        self.layers = self._make_layers(cfg, **kw)
         self.norm = LayerNorm(cfg.dim, **kw)
         self.to_logits = Linear(cfg.dim, cfg.num_classes, **kw)
         if cfg.has_context_proj:
             self.context_proj = Linear(cfg.context_dim, cfg.dim, bias=False,
                                        **kw)
+
+    @staticmethod
+    def _make_layers(cfg, **kw):
+        return make_stack(cfg.depth, cfg.dim, dim_head=cfg.dim_head,
+                          mlp_dim=cfg.mlp_dim, num_head=cfg.num_head,
+                          cross=True, context_dim=cfg.dim,
+                          dropout=cfg.dropout, **kw)
 
     @torch.no_grad()
     def init_weights_(self, generator):
@@ -62,6 +66,17 @@ class CondTransformer(nn.Module):
         """Vocab projection of a post-LN hidden state, in its dtype."""
         return self.to_logits(h)
 
+    def embed(self, x, context):
+        """``token_proj`` and the position table on the tokens; the context
+        in their type, through ``context_proj`` where there is one."""
+        x = self.token_proj(x)
+        x = x + self.pos_embed.to(x.dtype)
+        if context is not None:
+            context = context.to(x.dtype)
+            if self.cfg.has_context_proj:
+                context = self.context_proj(context)
+        return x, context
+
     def forward(self, x, context=None, *, backend=None, cfg_halves=False,
                 return_hidden=False, generator=None, remat=False):
         """x: (B, len_seq, in_dim) latent tokens; context (B, M, context_dim)
@@ -71,12 +86,7 @@ class CondTransformer(nn.Module):
         ``generator``: source of the dropout masks in training mode.
         ``remat``: recompute each block in the backward pass instead of
         keeping its activations."""
-        x = self.token_proj(x)
-        x = x + self.pos_embed.to(x.dtype)
-        if context is not None:
-            context = context.to(x.dtype)
-            if self.cfg.has_context_proj:
-                context = self.context_proj(context)
+        x, context = self.embed(x, context)
         x = stack_apply(self.layers, x, context, backend=backend,
                         cfg_halves=cfg_halves, generator=generator,
                         remat=remat)

@@ -1,0 +1,247 @@
+"""Mixture-of-Experts SwiGLU (``paintmind_tpu/nn/moe.py``): the stage-2
+block's feed-forward replaced by a routed pool of ``E`` SwiGLU experts.
+
+Routing is GShard / Switch style with static shapes:
+
+  * the router, a bias-free linear map to ``E`` logits, runs in fp32
+    whatever the activations' type; each token takes its top ``k`` experts
+    (ties go to the lower index, as ``jax.lax.top_k``), with the top-k
+    softmax gates renormalised to sum to 1;
+  * every expert holds ``C = max(1, int(T·k/E·cf + 0.999))`` slots, ``T``
+    the call's token count (so the capacity, and with it every token's
+    routing, depends on the whole batch);
+  * queue positions are slot-major (every token's first choice is queued
+    before any token's second choice, tokens in (b, l) order); a
+    (token, slot) assignment past its expert's capacity is dropped, and
+    contributes 0 (the block's residual carries the token through);
+  * the auxiliary losses: the Switch load-balance loss ``E·Σ_e f_e·p_e``
+    over the top-1 dispatch fractions ``f_e`` and mean router probabilities
+    ``p_e`` (1 at perfect balance), the router z-loss
+    ``mean(logsumexp(logits)²)``, the dropped fraction and the per-expert
+    top-1 load ``f_e``.
+
+The experts are stacked: ``experts.w12`` and ``experts.w3`` are
+``StackedLinear`` layers with weight (E, out, in) and bias (E, out), run as
+one batched product (``torch.baddbmm``) over an (E, C, D) buffer.  The JAX
+package computes dispatch, experts and combine with XLA, outside any
+Pallas kernel, so here they are plain PyTorch too.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import Attention
+from .core import LayerNorm, Linear
+from .mlp import swiglu_hidden_dim
+from .transformer import _remat_block
+
+DISPATCHES = ('auto', 'gather', 'dense')
+
+
+class StackedLinear(nn.Module):
+    """``num`` linear maps of one shape: weight (num, out, in), bias
+    (num, out).  ``forward`` maps (num, C, in) -> (num, C, out), the i-th
+    map on the i-th slice, in the input's type."""
+
+    def __init__(self, num, in_features, out_features, *, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.weight = nn.Parameter(torch.empty(num, out_features, in_features,
+                                               **kw))
+        self.bias = nn.Parameter(torch.empty(num, out_features, **kw))
+
+    @torch.no_grad()
+    def init_weights_(self, generator):
+        """Xavier-uniform per map (the JAX package vmaps its initialiser
+        over the experts), zero biases."""
+        out_f, in_f = self.weight.shape[1:]
+        a = math.sqrt(6.0 / (in_f + out_f))
+        self.weight.uniform_(-a, a, generator=generator)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return torch.baddbmm(self.bias.to(x.dtype)[:, None, :], x,
+                             self.weight.to(x.dtype).transpose(1, 2))
+
+
+class StackedSwiGLU(nn.Module):
+    """``E`` SwiGLU experts (``nn/mlp.py``'s layout, stacked)."""
+
+    def __init__(self, num, dim, mlp_dim, *, device=None, dtype=None):
+        super().__init__()
+        hidden = swiglu_hidden_dim(mlp_dim)
+        self.w12 = StackedLinear(num, dim, 2 * hidden, device=device,
+                                 dtype=dtype)
+        self.w3 = StackedLinear(num, hidden, dim, device=device, dtype=dtype)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
+class MoESwiGLU(nn.Module):
+    """``router`` (bias-free ``Linear(dim, E)``) and ``experts``
+    (``StackedSwiGLU``); ``forward(x) -> (y, aux)`` is ``moe_swiglu`` with
+    the routing options given here."""
+
+    def __init__(self, dim, mlp_dim, num_experts, *, num_selected=2,
+                 capacity_factor=1.25, dispatch='auto', device=None,
+                 dtype=None):
+        super().__init__()
+        self.router = Linear(dim, num_experts, bias=False, device=device,
+                             dtype=dtype)
+        self.experts = StackedSwiGLU(num_experts, dim, mlp_dim, device=device,
+                                     dtype=dtype)
+        self.num_experts = num_experts
+        self.num_selected = num_selected
+        self.capacity_factor = capacity_factor
+        self.dispatch = dispatch
+
+    def forward(self, x):
+        return moe_swiglu(self, x, self.num_selected, self.capacity_factor,
+                          self.dispatch)
+
+
+def capacity(tokens, k, num_experts, capacity_factor):
+    """Slots per expert: the JAX package's expression, float and all."""
+    return max(1, int(tokens * k / num_experts * capacity_factor + 0.999))
+
+
+def route(module, xt, num_selected, capacity_factor):
+    """The routing of (T, D) tokens: ``(logits, probs, gate, idx, pos,
+    keep, cap)``.  ``logits`` / ``probs`` (T, E) fp32; ``gate`` (T, k) the
+    renormalised top-k probabilities, ``idx`` (T, k) their experts (a stable
+    descending sort: ties go to the lower index); ``pos`` (T, k) each
+    assignment's place in its expert's queue, slot-major; ``keep`` (T, k)
+    ``pos < cap`` and a positive gate."""
+    e = module.num_experts
+    k = min(num_selected, e)
+    t = xt.shape[0]
+    logits = module.router(xt.float())
+    probs = torch.softmax(logits, dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = srt.values[:, :k], srt.indices[:, :k]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = capacity(t, k, e, capacity_factor)
+    # slot-major queue: the k·T assignments in (slot, token) order, each
+    # placed after the earlier ones to its expert.  The one-hot is (E, k·T)
+    # so that the scan runs along the inner axis: down the outer axis of a
+    # (k·T, E) tensor the card's scan is some 3 ms at T = 8192.
+    experts = torch.arange(e, device=idx.device)[:, None]
+    flat = (experts == idx.t().reshape(1, -1)).int()       # (E, k·T)
+    before = flat.cumsum(1, dtype=torch.int32) - flat
+    pos = (before * flat).sum(0).reshape(k, t).t()         # (T, k) int64
+    keep = (pos < cap) & (gate > 0)
+    return logits, probs, gate, idx, pos, keep, cap
+
+
+def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
+               dispatch='auto'):
+    """x: (..., D) -> (y (..., D), aux).  ``aux``: ``lb_loss``,
+    ``router_z``, ``dropped`` (0-d fp32) and ``expert_load`` ((E,) fp32).
+
+    ``dispatch``: ``'gather'`` writes each kept assignment's token into its
+    own (expert, queue) cell of an (E·C + 1, D) buffer by an indexed
+    assignment (the cells are unique, so no atomics and the same bits every
+    run; dropped assignments all land in the spare last row, which is cut
+    off), runs the experts as one batched product pair and gathers the
+    outputs back (the spare row reads 0); ``'dense'`` is the one-hot
+    (T, E, C) einsum form.  The two give the same routing and the same
+    result up to rounding.  ``'auto'`` is ``'gather'``: the JAX package
+    picks ``'dense'`` only under a mesh that shards the experts, and the
+    port has no expert-parallel mesh."""
+    if dispatch not in DISPATCHES:
+        raise ValueError(f'dispatch {dispatch!r} not in {DISPATCHES}')
+    lead, d = x.shape[:-1], x.shape[-1]
+    xt = x.reshape(-1, d)
+    t, e = xt.shape[0], module.num_experts
+    logits, probs, gate, idx, pos, keep, cap = route(
+        module, xt, num_selected, capacity_factor)
+    k = idx.shape[1]
+    dt = x.dtype
+    gk = gate.to(dt) * keep.to(dt)                          # (T, k)
+
+    if dispatch == 'dense':
+        pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
+        sel = F.one_hot(idx, e).to(dt)                      # (T, k, E)
+        pos_oh = pos_oh.to(dt)                              # (T, k, C)
+        disp = torch.einsum('tke,tkc->tec', sel * keep[..., None].to(dt),
+                            pos_oh)
+        comb = torch.einsum('tke,tkc->tec', gk[..., None] * sel, pos_oh)
+        expert_in = torch.einsum('tec,td->ecd', disp, xt)
+        expert_out = module.experts(expert_in)              # (E, C, Do)
+        y = torch.einsum('tec,ecd->td', comb, expert_out)
+    else:
+        cell = torch.where(keep, idx * cap + pos, e * cap).reshape(-1)
+        x_rep = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+        buf = torch.index_put(xt.new_zeros(e * cap + 1, d), (cell,), x_rep)
+        expert_out = module.experts(buf[:-1].view(e, cap, d))
+        out = F.pad(expert_out.reshape(e * cap, -1), (0, 0, 0, 1))
+        picked = out[cell].view(t, k, -1)
+        # one (1, k) x (k, Do) product a token: the k terms accumulate in
+        # fp32 and round once, as in the dense form's product
+        y = torch.bmm(gk[:, None, :], picked)[:, 0]
+
+    frac = F.one_hot(idx[:, 0], e).float().mean(0)          # top-1 f_e
+    aux = {
+        'lb_loss': e * (frac * probs.mean(0)).sum(),
+        'router_z': (torch.logsumexp(logits, dim=-1) ** 2).mean(),
+        'dropped': 1.0 - keep.float().mean(),
+        'expert_load': frac,
+    }
+    return y.reshape(*lead, y.shape[-1]), aux
+
+
+class MoEBlock(nn.Module):
+    """The stage-2 block (``nn/transformer.py::Block`` with cross-attention)
+    with the SwiGLU routed: ``forward`` returns ``(x, aux)``.  Attention
+    dropout in training mode from the caller's generator, as in ``Block``."""
+
+    def __init__(self, dim, *, dim_head, mlp_dim, num_head, num_experts,
+                 num_selected=2, capacity_factor=1.25, dispatch='auto',
+                 context_dim=None, dropout=0.0, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        attn = dict(heads=num_head, dim_head=dim_head, dropout=dropout, **kw)
+        self.norm1 = LayerNorm(dim, **kw)
+        self.attn1 = Attention(dim, **attn)
+        self.norm2 = LayerNorm(dim, **kw)
+        self.attn2 = Attention(dim, context_dim=context_dim, **attn)
+        self.norm3 = LayerNorm(dim, **kw)
+        self.ffnet = MoESwiGLU(dim, mlp_dim, num_experts,
+                               num_selected=num_selected,
+                               capacity_factor=capacity_factor,
+                               dispatch=dispatch, **kw)
+
+    def forward(self, x, context=None, *, backend=None, generator=None):
+        x = x + self.attn1(self.norm1(x), backend=backend, generator=generator)
+        x = x + self.attn2(self.norm2(x), context, backend=backend,
+                           generator=generator)
+        h, aux = self.ffnet(self.norm3(x))
+        return x + h, aux
+
+
+def make_moe_stack(depth, dim, **kw):
+    return nn.ModuleList(MoEBlock(dim, **kw) for _ in range(depth))
+
+
+def moe_stack_apply(layers, x, context=None, *, backend=None, generator=None,
+                    remat=False):
+    """Run the blocks; returns ``(x, aux)`` with each aux value summed over
+    the layers and divided by the depth (loss weights independent of
+    depth).  ``remat``: each block under ``torch.utils.checkpoint``."""
+    total = None
+    for block in layers:
+        if remat:
+            x, aux = _remat_block(block, x, context, generator,
+                                  backend=backend)
+        else:
+            x, aux = block(x, context, backend=backend, generator=generator)
+        total = aux if total is None else {n: total[n] + aux[n] for n in aux}
+    return x, {n: v / len(layers) for n, v in total.items()}

@@ -311,9 +311,9 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
     of the generator's (the tests pass in the numbers the JAX step draws).
 
     ``metrics['loss']`` is the mean over the microbatches, a 0-d tensor on
-    the device (reading it is the caller's synchronisation)."""
-    if pipe.config.num_experts:
-        raise _not_ported('MoE routing losses in the train step', 8)
+    the device (reading it is the caller's synchronisation).  For the MoE
+    versions the metrics also carry ``lb loss``, ``router z``, ``dropped``
+    and the (E,) ``expert load``, each the mean over the microbatches."""
     if transformer_apply is not None:
         raise _not_ported('a pipeline-parallel transformer_apply', 10)
     if state is None:
@@ -337,14 +337,16 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
                   else [None] * grad_accum,
                   noise.chunk(grad_accum) if noise is not None
                   else [None] * grad_accum]
-        loss_sum = 0.0
+        loss_sum, aux_sum = 0.0, {}
         for img, ctx, nz in zip(*chunks):
-            loss = pl.pipeline_loss(
+            loss, aux = pl.pipeline_loss(
                 pipe, _cast(img, compute_dtype), _cast(ctx, compute_dtype),
                 mask_ratio, generator=state['generator'], noise=nz,
-                backend=backend, vq_backend=vq_backend, remat=remat)
+                backend=backend, vq_backend=vq_backend, remat=remat,
+                return_aux=True)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
+            aux_sum = {n: aux_sum.get(n, 0.0) + v for n, v in aux.items()}
         # a parameter the batch did not reach (context_proj when the text
         # was dropped) gets a zero gradient: its moments and its weight
         # decay still advance, as in optax
@@ -353,7 +355,8 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
         state['step'] += 1
         if ema_decay is not None:
             _ema_update(state['ema'], params, ema_decay)
-        return {'loss': loss_sum / grad_accum}
+        return {'loss': loss_sum / grad_accum,
+                **{n: v * (1.0 / grad_accum) for n, v in aux_sum.items()}}
 
     step.state = state
     return step

@@ -684,6 +684,15 @@ class PaintMindTrainer(_TrainerBase):
                 if self.steps // self.log_every > prev // self.log_every:
                     m = {'loss': float(metrics['loss']),
                          'lr': float(self.scheduler(self.steps))}
+                    # the MoE versions' routing health: a collapsing router
+                    # (expert load max -> 1) or tokens over capacity
+                    for k in ('lb loss', 'router z', 'dropped'):
+                        if k in metrics:
+                            m[k] = float(metrics[k])
+                    if 'expert load' in metrics:
+                        load = metrics['expert load']
+                        m['expert load max'] = float(load.max())
+                        m['expert load min'] = float(load.min())
                     if not np.isfinite(m['loss']):  # failure detection (ext.)
                         raise FloatingPointError(
                             f'non-finite loss at step {self.steps}: '

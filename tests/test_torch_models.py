@@ -292,9 +292,7 @@ def test_pipeline_object_api(tpipe):
 
 def test_not_ported_branches_raise(tpipe):
     for call in (lambda: tpipe.quantize('w8a8'),
-                 lambda: tpipe.enable_pipeline_parallel(),
-                 lambda: tpl.Pipeline(tcfg.Config(tcfg.ver2cfg['paintmindv1-moe']),
-                                      stage1_pretrained=False, device='cpu')):
+                 lambda: tpipe.enable_pipeline_parallel()):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             call()
     with pytest.raises(ValueError, match='checkpoint_path'):

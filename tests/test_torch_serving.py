@@ -6,9 +6,10 @@ variations) run against the port's engine and HTTP server with a tiny
 pipeline (``device='cpu'``).  Parity with the JAX engine on the same weights
 (carried over by the weight bridge): ``/reconstruct`` within 1e-4 MAE; at
 temperature 0 (the argmax of the top-k logits, no noise) generate and paint
-give JAX's ids, and images within 1e-4 MAE.  What the port does not serve
-yet (MoE, int8, sharded and pipeline-parallel placements) raises
-``NotImplementedError`` naming its ROADMAP queue item.
+give JAX's ids, and images within 1e-4 MAE.  An MoE pipeline is served
+like a dense one.  What the port does not serve yet (int8, sharded and
+pipeline-parallel placements) raises ``NotImplementedError`` naming its
+ROADMAP queue item.
 """
 
 import base64
@@ -609,7 +610,7 @@ def test_paint_at_temperature_zero_matches_jax(jpipe, pipe):
 
 
 # ---------------------------------------------------------------------------
-# what the port does not serve yet
+# MoE, and what the port does not serve yet
 # ---------------------------------------------------------------------------
 
 def test_engine_refuses_quantized_pipeline(pipe):
@@ -620,11 +621,41 @@ def test_engine_refuses_quantized_pipeline(pipe):
         main(['--quantize', 'w8a8', '--device', 'cpu'])
 
 
-def test_engine_refuses_moe_pipeline():
-    moe = tpl.PipelineConfig(vqc=T_PIPE.vqc, num_experts=4, **PIPE_KW)
-    with pytest.raises(NotImplementedError, match='queue A item 8'):
-        tpl.Pipeline(moe, stage1_pretrained=False, text_encoder=None,
-                     device='cpu')
+def test_engine_serves_moe_pipeline():
+    """An MoE pipeline (E = 4, top-2, capacity factor 1.25: the capacity
+    counts every row of the batch) behind the engine: three seeded requests
+    run as one batch of 4, padded with a copy of the first, and their
+    images equal ``Pipeline.generate`` of that padded batch on the engine's
+    folded seed, bit for bit."""
+    moe = jpl.PipelineConfig(vqc=J_PIPE.vqc, num_experts=4, **PIPE_KW)
+    jparams = jax.jit(lambda k: jpl.init_pipeline(k, moe))(
+        jax.random.PRNGKey(3))
+    pipe = load_jax_params(
+        tpl.Pipeline(tpl.PipelineConfig(vqc=T_PIPE.vqc, num_experts=4,
+                                        **PIPE_KW),
+                     stage1_pretrained=False, text_encoder=None, device='cpu'),
+        flatten_tree(jparams))
+    ctx = np.random.default_rng(24).standard_normal((3, 5, 48)).astype(
+        np.float32)
+    seeds = [7, 8, 9]
+    kw = dict(timesteps=3, topk=3)
+    with GenerationEngine(pipe, max_batch=4, max_wait_ms=300) as eng:
+        futs = [eng.submit(GenerateRequest(context=ctx[i], seed=seeds[i],
+                                           guidance_scale=2.0, **kw))
+                for i in range(3)]
+        got = [f.result(timeout=300) for f in futs]
+        stats = eng.stats()
+    assert stats['batches'] == 1 and stats['padded_slots'] == 1
+    # the engine's batch: the pad row copies request 0's context and takes
+    # temperature and guidance 1.0
+    direct = pipe.generate(
+        text=torch.from_numpy(np.concatenate([ctx, ctx[:1]])),
+        temperature=np.ones(4, np.float32),
+        guidance_scale=np.asarray([2.0, 2.0, 2.0, 1.0], np.float32),
+        decode_steps='final',
+        generator=torch.Generator().manual_seed(fold_seeds(seeds)), **kw)[-1]
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], direct[i].numpy())
 
 
 def test_engine_refuses_sharded_pipeline(pipe):
