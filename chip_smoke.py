@@ -42,6 +42,14 @@ exits non-zero with no result line:
      with the kernels and with the plain attention (router and expert
      gradients compared) and three timed Lion updates with the routing
      metrics;
+  5c. int8 serving at paintmindv1's full width: ``QLinear`` alone (1024 ->
+     5472 and 1024 -> 8192 over 8192 tokens, w8 and w8a8, card against
+     CPU: w8a8's int32 accumulators bit-equal); w8 and w8a8 pipelines
+     (``Pipeline.quantize``) run the 16-step ``generate`` at B = 8, timed
+     beside bf16, with the share of ids that agree with bf16; three
+     requests through a ``GenerationEngine`` over w8a8, bit-equal to
+     ``generate`` of the padded batch; a quantized ``save_pretrained`` ->
+     ``from_pretrained`` round trip, bit-equal;
   6. serving: ``make_server`` over a ``GenerationEngine`` over a
      full-width bf16 ``paintmindv1`` with a full-width flan-t5-large text
      tower (seeded random weights): one concurrent HTTP burst of prompted
@@ -67,11 +75,18 @@ exits non-zero with no result line:
      ``train_vqgan`` -> ``train_paintmind`` on its export -> ``generate``
      (and ``--mode inpaint``) on that export, and ``convert_checkpoint`` of
      a seeded reference-layout ``.pt``;
-  8. ``torch.profiler`` windows (device activity only) over one unguided
-     ``generate`` of paintmindv1 and one of paintmindv1-moe, one stage-2
-     training microbatch and one stage-1 microbatch: the ten device
-     operations with the most time, and the device's busy share of each
-     window (report only);
+  7d. the device-side data tier and rFID: a ``DeviceCacheLoader`` on the
+     card (eval batches equal a CPU loader's, train batches the crops of
+     their draws), ``batched_transform`` card against CPU, the full-width
+     InceptionV3 card against CPU, the rFID of the shipped VQGAN's
+     reconstructions, and ``train_vqgan --device-cache --eval-rfid`` and
+     ``train_paintmind --device-cache``;
+  8. ``utils.profiling.trace`` windows (device activity only, each inside
+     an ``annotate`` range) over one unguided ``generate`` of paintmindv1,
+     of its w8a8 form and of paintmindv1-moe, one stage-2 training
+     microbatch and one stage-1 microbatch: the ten device operations with
+     the most time, and the device's busy share of each window (report
+     only); a short window with host activity must show its range;
   9. one ``{"kernels": [...]}`` line, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -116,6 +131,7 @@ from paintmind_tpu_torch.train.steps import (make_pipeline_train_step,
                                              make_vqgan_train_step,
                                              vqgan_g_loss)
 from paintmind_tpu_torch.utils.checkpoint import load_flat
+from paintmind_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ASSET = os.path.join(ROOT, 'paintmind_tpu', 'assets', 'vit_vq_photo.npz')
@@ -192,6 +208,13 @@ def bound(nbytes, ops, dtype):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def peak_gib():
+    """The card's peak allocated memory since the last
+    ``torch.cuda.reset_peak_memory_stats()``, in GiB
+    (``utils.profiling.device_memory_stats``)."""
+    return profiling.device_memory_stats()['peak_bytes_in_use'] / 2**30
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +833,7 @@ def stage2(totals):
     check(rel <= 5e-2, f'stage-2 logits kernel vs plain: mean rel err {rel}')
     log(f'stage 2 guided logits, kernels vs plain attention: mean rel err '
         f'{rel:.3e}, argmax agree {top1:.4f}')
-    log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    log(f'peak device memory {peak_gib():.2f} GiB')
     return pipe
 
 
@@ -887,8 +910,8 @@ def moe_phase(totals):
     through the plain attention, K3 on one seed in both: ids agree >= 0.999,
     image MAE <= 1e-3 (phase 4's gates); bf16 ``generate`` at B = 8, 16
     steps, top-k 5, unguided and guided at 3.0 (two passes, logits mixed),
-    each run three times with its launches counted (a warm-up first),
-    images/s from the median, and an ``inpaint``; three seeded requests
+    unguided run three times and guided once with their launches counted
+    (a warm-up first), images/s from the median, and an ``inpaint``; three seeded requests
     through a ``GenerationEngine`` (max_batch 4, one padded batch) whose
     images equal ``Pipeline.generate`` of the same padded batch bit for
     bit; a 2-step ``generate`` of ``paintmindv1-moe-4e`` (4 experts); then
@@ -946,7 +969,7 @@ def moe_phase(totals):
     for what, kw, per_layer in (('unguided', {}, 2),
                                 ('guided', {'guidance_scale': 3.0}, 4)):
         secs = []
-        for i in range(3):
+        for i in range(3 if what == 'unguided' else 1):  # guided: cut to 1
             imgs, s = drive(lambda: half.generate(
                 text=ctx, timesteps=steps, topk=5, decode_steps='final',
                 generator=g, **kw)[-1],
@@ -955,7 +978,7 @@ def moe_phase(totals):
             check_images(imgs, f'MoE {what} generate')
             secs.append(s)
         rates[what] = 8 / float(np.median(secs))
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_gib()
     painted, _ = drive(lambda: half.inpaint(imgs, (64, 64, 128, 128), text=ctx,
                                             timesteps=4, generator=g),
                        {'K1': enc + depth * 2 * 4 + dec, 'K2': 1, 'K3': 4},
@@ -963,7 +986,8 @@ def moe_phase(totals):
     check_images(painted, 'MoE inpaint')
     log(f'MoE generate bf16 B=8 {steps} steps (incl. decode): '
         f'{rates["unguided"]:.3f} images/s unguided, {rates["guided"]:.3f} '
-        f'images/s guided at 3.0 (two passes; median of 3 after a warm-up), '
+        f'images/s guided at 3.0 (two passes; unguided the median of 3 '
+        f'after a warm-up, guided one run), '
         f'peak device memory {peak:.2f} GiB; {CARD}')
 
     # three seeded requests: one batch of 4, the pad row a copy of the first
@@ -1091,7 +1115,7 @@ def moe_phase(totals):
                      f'MoE train update {i} B=16 grad_accum=2')
         metrics.append({n: v.float().cpu() for n, v in m.items()})
         times.append(start.elapsed_time(end) / 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_gib()
     losses = [float(m['loss']) for m in metrics]
     check(all(math.isfinite(x) for x in losses), f'MoE losses {losses}')
     check(abs(losses[0] - math.log(8192)) <= 0.5,
@@ -1114,6 +1138,184 @@ def moe_phase(totals):
         f'{peak:.2f} GiB; {CARD}')
     del opt, step, pipe
     return half
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: int8 serving (w8, w8a8)
+# ---------------------------------------------------------------------------
+
+def ulp_ok(got, want):
+    """``got`` within one unit in the last place of ``want`` (fp32 or bf16),
+    elementwise."""
+    w = want.float()
+    _, exp = torch.frexp(w)
+    bits = 24 if want.dtype == torch.float32 else 8
+    step = torch.ldexp(torch.ones_like(w), exp - bits)
+    return bool(((got.float() - w).abs() <= step).all())
+
+
+def int8_layer(g):
+    """``QLinear`` at the widths of paintmindv1's SwiGLU input (1024 -> 5472)
+    and vocab head (1024 -> 8192), over B·N = 8192 tokens, both modes, fp32
+    and bf16 activations, the card against the CPU path on the same
+    inputs: w8a8's int8 activations, token scales and int32 accumulators
+    bit-equal (``torch._int_mm`` against an exact float64 product) and its
+    outputs within one unit in the last place; w8 within 1e-5 relative in
+    fp32 (TF32 off) and, in bf16, within 1e-2 mean relative of the CPU's
+    fp32 output (bf16 rounding of the weight cast and the product); a second
+    run bit-equal.  Times (CUDA events, device time): each mode against the
+    bf16 ``F.linear`` of the floating-point weights."""
+    from paintmind_tpu_torch.nn import quant
+    from paintmind_tpu_torch.nn.core import Linear, xavier_uniform_
+    times = []
+    for din, dout in ((1024, 5472), (1024, 8192)):
+        lin = Linear(din, dout, device='cuda')
+        xavier_uniform_(lin.weight, g)
+        with torch.no_grad():
+            lin.bias.normal_(generator=g).mul_(0.02)
+        x = torch.randn(8192, din, device='cuda', generator=g)
+        x_cpu = x.cpu()
+        q = {m: quant.quantize_linear(lin, m) for m in quant.QMODES}
+        q_cpu = {m: quant.quantize_linear(lin, m).to('cpu') for m in quant.QMODES}
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, xc = x.to(dtype), x_cpu.to(dtype)
+            xq, sx = quant.quantize_activations(xd)
+            xq_c, sx_c = quant.quantize_activations(xc)
+            check(torch.equal(xq.cpu(), xq_c) and torch.equal(sx.cpu(), sx_c),
+                  f'w8a8 {din}->{dout} {dtype}: activation quantization differs')
+            acc = quant.int8_matmul(xq, q['w8a8'].kernel_q)
+            acc_c = quant.int8_matmul(xq_c, q_cpu['w8a8'].kernel_q)
+            check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), acc_c),
+                  f'w8a8 {din}->{dout} {dtype}: int32 accumulators differ')
+            for mode in quant.QMODES:
+                y = q[mode](xd)
+                check(torch.equal(y, q[mode](xd)),
+                      f'{mode} {din}->{dout} {dtype}: second run differs')
+                if mode == 'w8a8':
+                    check(ulp_ok(y.cpu(), q_cpu[mode](xc)),
+                          f'w8a8 {din}->{dout} {dtype}: card vs CPU beyond 1 ulp')
+                    continue
+                ref = q_cpu[mode](x_cpu)  # fp32 on the CPU
+                err = ((y.float().cpu() - ref).abs().mean() / ref.abs().mean()
+                       if dtype == torch.bfloat16 else
+                       (y.cpu() - ref).abs().max() / ref.abs().max()).item()
+                check(err <= (1e-2 if dtype == torch.bfloat16 else 1e-5),
+                      f'w8 {din}->{dout} {dtype}: card vs CPU rel err {err}')
+        xb = x.bfloat16()
+        ms = {m: time_ms(lambda m=m: q[m](xb), 20) for m in quant.QMODES}
+        ms['bf16'] = time_ms(lambda: lin(xb), 20)
+        times.append(f'{din}->{dout}: w8 {ms["w8"]:.4f}, w8a8 {ms["w8a8"]:.4f}, '
+                     f'bf16 F.linear {ms["bf16"]:.4f} ms')
+    log('int8 layer, 8192 tokens, card vs CPU: w8a8 int32 accumulators and '
+        'int8 activations bit-equal, outputs within 1 ulp (fp32, bf16); w8 '
+        'within 1e-5 (fp32) / 1e-2 mean rel (bf16); second runs bit-equal')
+    log(f'int8 layer device ms (bf16 activations, 20 calls): {"; ".join(times)}')
+
+
+def int8_phase(totals, dense):
+    """int8 serving at paintmindv1's full width.  The layer alone
+    (``int8_layer``); then ``dense`` (the stage-2 phase's bf16 pipeline)
+    and, built from the same seed, a ``w8`` and a ``w8a8`` pipeline
+    (``Pipeline.quantize``, head included): 16-step ``generate`` at B = 8,
+    top-k 5, unguided, each three times with its launches counted (K1 and
+    K3 at the stage-2 phase's counts) after a warm-up, images/s from the
+    median; the share of final ids that agree with the bf16 pipeline's on
+    the same K3 seed (a report: int8 moves logits, so sampled ids drift);
+    three seeded requests through a ``GenerationEngine`` over the w8a8
+    pipeline, equal bit for bit to ``Pipeline.generate`` of the padded
+    batch; ``save_pretrained`` of the w8a8 pipeline into a fresh pipeline
+    quantized the same way, ``from_pretrained``, every tensor bit-equal
+    and the scales fp32."""
+    from paintmind_tpu_torch.models import pipeline as tpl
+    from paintmind_tpu_torch.serving.engine import fold_seeds
+    g = torch.Generator(device='cuda').manual_seed(90)
+    int8_layer(g)
+    cfg = dense.config
+    steps, depth, dec = 16, cfg.depth, cfg.vqc.dec.depth
+    ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
+    init = torch.full((8, cfg.num_tokens), cfg.mask_token_id,
+                      dtype=torch.int32, device='cuda')
+
+    def final_ids(pipe):
+        ids, _ = tpl.generate_ids(pipe, init, ctx, cfg=cfg, timesteps=steps,
+                                  topk=5, dtype=pipe.compute_dtype,
+                                  generator=torch.Generator(
+                                      device='cuda').manual_seed(91))
+        return ids
+
+    def rate(pipe, what):
+        pipe.generate(text=ctx, timesteps=2, topk=5, decode_steps='final',
+                      generator=g)  # warm-up
+        secs = []
+        for i in range(3):
+            imgs, s = drive(lambda: pipe.generate(
+                text=ctx, timesteps=steps, topk=5, decode_steps='final',
+                generator=g)[-1], {'K1': depth * 2 * steps + dec, 'K3': steps},
+                totals, f'generate B=8 {steps} steps {what} run {i}')
+            check_images(imgs, f'{what} generate')
+            secs.append(s)
+        return 8 / float(np.median(secs))
+
+    rates = {'bf16': rate(dense, 'bf16')}
+    ref = final_ids(dense)
+    pipes = {}
+    for mode in ('w8', 'w8a8'):
+        pipe = pt.create_model('pipeline', 'paintmindv1', pretrained=False,
+                               stage1_checkpoint_path=ASSET, text_encoder=None,
+                               compute_dtype=torch.bfloat16).quantize(mode)
+        q = pipe.transformer.layers[0].ffnet.w12
+        check(q.kernel_q.dtype == torch.int8 and q.scale.dtype == torch.float32
+              and q.kernel_q.is_cuda and q.mode == mode,
+              f'{mode}: quantized layer {q}')
+        rates[mode] = rate(pipe, mode)
+        agree = (final_ids(pipe) == ref).float().mean().item()
+        log(f'{mode}: {rates[mode]:.3f} images/s, final ids agree with bf16 on '
+            f'the same K3 seed: {agree:.4f}; {pipe.num_params / 1e6:.3f} M '
+            f'parameters (JAX leaf count)')
+        pipes[mode] = pipe
+    pipes['w8'].to('cpu')
+    w8a8 = pipes['w8a8']
+    log(f'int8 generate B=8 {steps} steps unguided (incl. decode, median of 3 '
+        f'after a warm-up): bf16 {rates["bf16"]:.3f}, w8 {rates["w8"]:.3f} '
+        f'({rates["w8"] / rates["bf16"]:.3f}x), w8a8 {rates["w8a8"]:.3f} '
+        f'({rates["w8a8"] / rates["bf16"]:.3f}x) images/s; {CARD}')
+
+    seeds = [21, 22, 23]
+    with GenerationEngine(w8a8, max_batch=4, max_wait_ms=200) as eng:
+        def served():
+            futs = [eng.submit(GenerateRequest(context=ctx[i], timesteps=steps,
+                                               topk=5, seed=seeds[i]))
+                    for i in range(3)]
+            return [f.result(timeout=600) for f in futs]
+        got, _ = drive(served, {'K1': depth * 2 * steps + dec, 'K3': steps},
+                       totals, 'w8a8 engine: 3 seeded requests, one batch of 4')
+        stats = eng.stats()
+    check(stats['batches'] == 1 and stats['padded_slots'] == 1,
+          f'w8a8 engine batches: {stats}')
+    direct = w8a8.generate(
+        text=torch.cat([ctx[:3], ctx[:1]]), timesteps=steps, topk=5,
+        temperature=np.ones(4, np.float32), decode_steps='final',
+        generator=torch.Generator(device='cuda').manual_seed(
+            fold_seeds(seeds)))[-1].float().cpu().numpy()
+    check(all(np.array_equal(got[i], direct[i]) for i in range(3)),
+          'w8a8 engine: images differ from Pipeline.generate of its padded batch')
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = w8a8.save_pretrained(os.path.join(tmp, 'w8a8.npz'))
+        fresh = pt.create_model('pipeline', 'paintmindv1', pretrained=False,
+                                stage1_checkpoint_path=ASSET,
+                                text_encoder=None, seed=5,
+                                compute_dtype=torch.bfloat16).quantize('w8a8')
+        fresh.from_pretrained(path)
+    mine, theirs = w8a8.state_dict(), fresh.state_dict()
+    check(list(mine) == list(theirs) and all(
+        mine[k].dtype == theirs[k].dtype and torch.equal(mine[k], theirs[k])
+        for k in mine), 'w8a8 save_pretrained -> from_pretrained differs')
+    log('w8a8 engine: three served images equal Pipeline.generate of the '
+        'padded batch, bit for bit; save_pretrained -> fresh pipeline -> '
+        'quantize -> from_pretrained: every tensor bit-equal')
+    del fresh
+    return w8a8
 
 
 # ---------------------------------------------------------------------------
@@ -1576,7 +1778,7 @@ def training(totals):
           f'first loss {losses[0]} is not near ln 8192')
     check(losses[-1] < losses[0], f'loss did not fall: {losses}')
     sec = float(np.median(times[1:]))
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_gib()
     log(f'train updates (Lion, lr 1e-4, dropout {cfg.dropout}, 2 microbatches '
         f'of B=8): losses {" ".join(f"{x:.4f}" for x in losses)}; '
         f'{sec:.4f} s per update = {16 / sec:.2f} images/s (median of the 2 '
@@ -1799,7 +2001,7 @@ def variant_512(totals):
           f'512² bf16 generate: {tpl.sort_remasks} sort re-masks')
     log(f'512² generate bf16 B=2 {steps} steps (incl. decode): {sec:.3f} s = '
         f'{2 / sec:.3f} images/s, peak device memory '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; reconstruct '
+        f'{peak_gib():.2f} GiB; reconstruct '
         f'B=2 fp32 {s_rec:.3f} s; {CARD}')
 
 
@@ -1936,7 +2138,7 @@ def stage1_training(totals):
     check(all(math.isfinite(v) for m in losses for v in m.values()),
           f'stage-1 metrics {losses}')
     sec = float(np.median(times[1:]))
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_gib()
     log('stage-1 updates (Adam 1e-4, share_forward, 2 microbatches of B=8, '
         'EMA): ' + '; '.join(
             f'loss {m["loss"]:.4f} rec {m["rec loss"]:.4f} per '
@@ -2019,7 +2221,8 @@ def command_lines(totals):
     full width on 40 seeded JPEGs: ``train_vqgan`` from the shipped weights
     (LPIPS 'random', B = 8, one update: 40 images less the trainer's 32 held
     out), ``train_paintmind`` over the tokenizer that run exported (B = 8,
-    three updates, unconditional: a folder has no captions), ``generate``
+    one update: 32 of the 40 held out; unconditional: a folder has no
+    captions), ``generate``
     from the pipeline that run exported (16 steps) and ``--mode inpaint`` on
     one of the JPEGs, and ``convert_checkpoint`` on a ``.pt`` written from
     a seeded VQGAN in the reference's state-dict layout, whose archive and
@@ -2056,23 +2259,24 @@ def command_lines(totals):
         del s1
         gc.collect()
 
+        # 32 of the 40 held out: one update
         s2, sec2 = drive(lambda: train_paintmind.main([
             '--dataset', f'folder:{data}', '--stage1-checkpoint', stage1,
-            '--save-every', '3', '--result-folder',
+            '--save-every', '1', '--valid-size', '32', '--result-folder',
             os.path.join(tmp, 'paintmind'), *common]),
-            {'K1': 3 * (enc + 2 * depth), 'K2': 3, 'K4': 3 * 2 * depth},
-            totals, 'train_paintmind: 3 updates B=8 + save')
+            {'K1': enc + 2 * depth, 'K2': 1, 'K4': 2 * depth},
+            totals, 'train_paintmind: 1 update B=8 + save')
         models = os.path.join(tmp, 'paintmind', 'models')
-        check(s2.steps == 3 and math.isfinite(s2.log['loss']),
+        check(s2.steps == 1 and math.isfinite(s2.log['loss']),
               f'train_paintmind: steps {s2.steps}, log {s2.log.data}')
-        check(sorted(os.listdir(models)) == ['paintmind_state_3.pt',
-                                             'paintmind_step_3.npz'],
+        check(sorted(os.listdir(models)) == ['paintmind_state_1.pt',
+                                             'paintmind_step_1.npz'],
               f'train_paintmind wrote {os.listdir(models)}')
         loss2 = s2.log['loss']
         del s2
         gc.collect()
 
-        pipeline = os.path.join(models, 'paintmind_step_3.npz')
+        pipeline = os.path.join(models, 'paintmind_step_1.npz')
         out = os.path.join(tmp, 'samples.png')
         imgs, sec3 = drive(lambda: generate.main([
             '--checkpoint', pipeline, '--timesteps', '16', '--out', out]),
@@ -2112,6 +2316,161 @@ def command_lines(totals):
         f'convert_checkpoint {sec5:.2f} s (each including its model set-up, '
         f'data and file writes; host clock); native loader: '
         f'{"driven" if NATIVE_LOADER else "not driven (no libjpeg headers)"}')
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: device-side data, rFID and the command lines that use them
+# ---------------------------------------------------------------------------
+
+def data_rfid_phase(totals):
+    """The device-side data tier and rFID at full width.  A
+    ``DeviceCacheLoader`` on 40 seeded JPEGs (``write_jpegs``, as phase
+    7c): the corpus must sit on the card; its eval batches (B = 8, the
+    tail included) bit-equal to a CPU loader's on the same folder; every
+    train batch of an epoch (B = 8, flips on) bit-equal to
+    ``ops.image.crop`` of the loader's own draws.  ``batched_transform``
+    (eval, and train on explicit offsets) on 8 seeded 448 × 320 uint8
+    images, card against CPU within 1e-5.  The full-width InceptionV3 pool3
+    (2048-d, seed-0 random features, fp32 with TF32 off) on 8 images, card
+    against CPU within 1e-4 relative to the largest feature; ms per image
+    at the rFID batch of 32.  rFID of 32 seeded 256² images against their
+    reconstructions by the shipped ``vit_vq_photo.npz`` (value and
+    variant).  Then ``train_vqgan --device-cache --eval-rfid`` (one update
+    of four microbatches of B = 8 from the shipped weights, then
+    ``evaluate()`` with rFID on the 4 held-out images) and
+    ``train_paintmind --device-cache`` (one update of four microbatches of
+    B = 8 on that run's export), with their seconds."""
+    from paintmind_tpu_torch.models import inception as tinc
+    from paintmind_tpu_torch.ops import image as timage
+    from paintmind_tpu_torch.scripts import train_paintmind, train_vqgan
+    from paintmind_tpu_torch.utils import device_cache as tdc
+    from paintmind_tpu_torch.utils import metrics
+    vcfg = pt.ver2cfg['vit-s-vqgan']
+    enc, dec = vcfg['enc']['depth'], vcfg['dec']['depth']
+    depth = pt.ver2cfg['paintmindv1']['depth']
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_jpegs(os.path.join(tmp, 'jpegs'), 40)
+        t0 = time.perf_counter()
+        card = tdc.DeviceCacheLoader(data, 8, is_train=False, drop_last=False,
+                                     return_indices=True)
+        upload = time.perf_counter() - t0
+        host = tdc.DeviceCacheLoader(data, 8, is_train=False, drop_last=False,
+                                     return_indices=True, device='cpu')
+        check(card._data.is_cuda and card.nbytes == 40 * 320 * 320 * 3,
+              f'device cache on {card._data.device}, {card.nbytes} bytes')
+        for (a, ia), (b, ib) in zip(card, host):
+            check(a.is_cuda and torch.equal(a.cpu(), b)
+                  and torch.equal(ia.cpu(), ib),
+                  'device cache: eval batch differs between card and CPU')
+        train = tdc.DeviceCacheLoader(data, 8, seed=3, return_indices=True)
+        perm, plan = train.epoch_plan(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batches = list(train)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        for step, (batch, idx) in enumerate(batches):
+            tops, lefts, flips = plan[step]
+            want = tdc.normalize(timage.crop(
+                train._data[perm[step * 8:step * 8 + 8]], tops, lefts, 256,
+                flips))
+            check(batch.is_cuda and batch.shape == (8, 256, 256, 3)
+                  and torch.equal(batch, want)
+                  and torch.equal(idx, perm[step * 8:step * 8 + 8]),
+                  f'device cache: train batch {step} is not its draws\' crop')
+        log(f'device cache: 40 images, {card.nbytes / 1e6:.1f} MB on '
+            f'{card._data.device}, built in {upload:.2f} s (host decode + '
+            f'resize, one upload); eval batches card = CPU bit for bit; '
+            f'{len(batches)} train batches B=8 equal the crops of their '
+            f'draws; one train epoch {epoch_ms:.2f} ms (host clock)')
+
+    g = torch.Generator(device='cuda').manual_seed(110)
+    imgs = torch.randint(0, 256, (8, 448, 320, 3), dtype=torch.uint8,
+                         device='cuda', generator=g)
+    tops, lefts, flips = timage.draw_crops(8, 64, g, 'cuda')
+    for kw in ({'is_train': False},
+               {'tops': tops, 'lefts': lefts, 'flips': flips}):
+        a = timage.batched_transform(imgs, **kw)
+        b = timage.batched_transform(
+            imgs.cpu(), **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                           for k, v in kw.items()})
+        err = (a.cpu() - b).abs().max().item()
+        check(a.shape == (8, 256, 256, 3) and err <= 1e-5,
+              f'batched_transform {kw.keys()}: card vs CPU {err}')
+    ms_t = median_ms(lambda: timage.batched_transform(imgs, g), 5)
+    log(f'batched_transform 8 x 448x320 uint8 -> 256²: card vs CPU within '
+        f'1e-5 (eval and train on explicit offsets), {ms_t:.3f} ms a batch')
+
+    net = tinc.init_inception()
+    net_cpu = tinc.InceptionV3(device='cpu')
+    net_cpu.load_state_dict(net.state_dict())
+    x = seeded_images(8, 256, 111)
+    feats = net(x)
+    ref = net_cpu(x.cpu())
+    rel = ((feats.cpu() - ref).abs().max() / ref.abs().max()).item()
+    check(feats.shape == (8, 2048) and bool(torch.isfinite(feats).all())
+          and rel <= 1e-4, f'InceptionV3 card vs CPU: rel err {rel}')
+    x32 = seeded_images(32, 256, 112)
+    ms_inc = median_ms(lambda: net(x32), 3)
+    log(f'InceptionV3 pool3 fp32, card vs CPU on 8 images: max rel err '
+        f'{rel:.3e}; {ms_inc / 32:.3f} ms an image at B=32 (median of 3)')
+    del net, net_cpu
+
+    vqgan = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=ASSET)
+    real = seeded_images(32, 256, 113)
+    rec, _ = drive(lambda: vqgan.reconstruct(real),
+                   {'K1': enc + dec, 'K2': 1}, totals,
+                   'rFID: reconstruct B=32 (shipped weights)')
+    t0 = time.perf_counter()
+    value, variant = metrics.rfid(real, rec)
+    sec_rfid = time.perf_counter() - t0
+    check(math.isfinite(value) and value >= 0 and variant == 'rfid-rand',
+          f'rFID {value} {variant}')
+    log(f'rFID of 32 seeded images vs their vit_vq_photo reconstructions: '
+        f'{value:.4f} ({variant}; random-feature InceptionV3, comparable '
+        f'within this package only), {sec_rfid:.2f} s (features on the card, '
+        f'the 2048² matrix square root on the host)')
+    del vqgan
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_jpegs(os.path.join(tmp, 'jpegs'), 40)
+        # 40 images: 4 held out (a tenth), 36 to train: one update of four
+        # microbatches of 8 (36 // 32 host steps)
+        common = ['--dataset', f'folder:{data}', '--batch-size', '8',
+                  '--grad-accum', '4', '--epochs', '1', '--num-workers', '8',
+                  '--log-dir', os.path.join(tmp, 'log'), '--device-cache']
+        argv = common + ['--init-checkpoint', ASSET, '--perceptual', 'random',
+                         '--save-every', '4', '--sample-every', '4',
+                         '--eval-rfid', '--result-folder',
+                         os.path.join(tmp, 'vqgan')]
+        s1, sec1 = drive(lambda: train_vqgan.main(argv),
+                         {'K1': 5 * (enc + dec), 'K2': 5, 'K4': 4 * (enc + dec)},
+                         totals, 'train_vqgan --device-cache --eval-rfid: '
+                         '1 update (4 x B=8) + save + evaluate')
+        check(s1.steps == 4 and isinstance(s1.train_dl, tdc.DeviceCacheLoader)
+              and s1.train_dl._data.is_cuda
+              and math.isfinite(s1.log['loss'])
+              and math.isfinite(s1.log['val rfid-rand']),
+              f'train_vqgan --device-cache: {s1.log.data}')
+        stage1 = os.path.join(tmp, 'vqgan', 'models', 'vit_vq_step_4.npz')
+        val = s1.log['val rfid-rand']
+        del s1
+        gc.collect()
+        s2, sec2 = drive(lambda: train_paintmind.main(common + [
+            '--stage1-checkpoint', stage1, '--save-every', '4',
+            '--sample-every', '1000', '--valid-size', '4', '--result-folder',
+            os.path.join(tmp, 'paintmind')]),
+            {'K1': 4 * (enc + 2 * depth), 'K2': 4, 'K4': 4 * 2 * depth},
+            totals, 'train_paintmind --device-cache: 1 update (4 x B=8) + save')
+        check(s2.steps == 4 and isinstance(s2.train_dl, tdc.DeviceCacheLoader)
+              and not s2.train_dl.hflip and math.isfinite(s2.log['loss']),
+              f'train_paintmind --device-cache: {s2.log.data}')
+        del s2
+        gc.collect()
+    log(f'command lines on a device cache: train_vqgan --device-cache '
+        f'--eval-rfid {sec1:.2f} s (val rfid-rand {val:.4f}), train_paintmind '
+        f'--device-cache {sec2:.2f} s (each including its model set-up, '
+        f'cache build and file writes; host clock)')
 
 
 # the bf16 attention kernels, which must run their products on the tensor cores
@@ -2194,55 +2553,90 @@ def report_build(name, seconds, sass):
               f'{kernel} was not compiled')
 
 
-def profile_window(fn, what):
-    """One ``torch.profiler`` window over ``fn`` (which ends synchronised):
-    the ten device operations with the most time, the sum of device time
-    and its share of the window.  Report only: nothing is gated on it."""
+def profile_window(fn, what, activities=('cuda',), write=False):
+    """One ``utils.profiling.trace`` window over ``fn`` (which ends
+    synchronised) inside an ``annotate(what)`` range: the ten device
+    operations with the most time, the sum of device time and its share of
+    the window.  Device activity only by default: host operators' events
+    would slow the trace's processing (a ``generate`` window holds some
+    20000 device operations).  With ``write`` the trace file goes to a
+    temporary directory and must be there.  Report only: nothing is gated
+    on it.  Returns the profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    # device activity only: the host operators' events would only slow the
-    # trace's processing (a window holds some 20000 device operations)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    # kernels and device copies only: a host-side operator's row repeats
-    # the device time of the kernels it launched
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir if write else None,
+                             activities=activities) as prof:
+            t0 = time.perf_counter()
+            with profiling.annotate(what):
+                fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        written = ''
+        if write:
+            files = os.listdir(log_dir)
+            check(len(files) == 1 and files[0].endswith('.pt.trace.json'),
+                  f'profiling.trace wrote {files}')
+            size = os.path.getsize(os.path.join(log_dir, files[0]))
+            written = f', trace file {size / 1e6:.1f} MB'
+    # kernels and device copies only: a host-side operator's row repeats the
+    # device time of the kernels it launched, and the annotation's device
+    # row spans the window
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key != what]
     if not rows:
         log(f'profile {what}: key_averages() shows no device time on this '
             f'machine; window {window_ms:.3f} ms on the host clock')
-        return
+        return prof
     rows.sort(key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
     log(f'profile {what}: window {window_ms:.3f} ms (host clock, profiler on), '
         f'device time {busy:.3f} ms = {100 * busy / window_ms:.1f} % of the '
         f'window, {sum(r[1] for r in rows)} device operations of '
-        f'{len(rows)} kinds; the ten with the most time (calls, ms, name):')
+        f'{len(rows)} kinds{written}; the ten with the most time (calls, ms, '
+        f'name):')
     for name, calls, ms in rows[:10]:
         log(f'  {calls:6d} {ms:10.3f}  {name[:200]}')
+    return prof
 
 
-def profiles(serving, trained, stage1, moe):
+def profiles(serving, trained, stage1, moe, w8a8):
     """Where the time of one unguided ``generate`` (the stage-2 phase's
-    bf16 pipeline, and the MoE phase's bf16 ``paintmindv1-moe``), of one
-    stage-2 training microbatch (the training phase's pipeline) and of one
-    stage-1 microbatch's G loss and backward (the stage-1 training phase's
-    VQGAN, discriminator and LPIPS) goes on the device."""
+    bf16 pipeline, the int8 phase's w8a8 one and the MoE phase's bf16
+    ``paintmindv1-moe``), of one stage-2 training microbatch (the training
+    phase's pipeline) and of one stage-1 microbatch's G loss and backward
+    (the stage-1 training phase's VQGAN, discriminator and LPIPS) goes on
+    the device.  A short window records host and device activity (the w8a8
+    vocab head on 8192 tokens), writes its trace file and must show its
+    ``annotate`` range."""
     cfg = serving.config
     g = torch.Generator(device='cuda').manual_seed(0)
     ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
     profile_window(lambda: serving.generate(
         text=ctx, timesteps=16, topk=5, decode_steps='final', generator=g),
         'generate B=8 16 steps bf16')
+    serving.to('cpu')
+    w8a8.to('cuda')
+    profile_window(lambda: w8a8.generate(
+        text=ctx, timesteps=16, topk=5, decode_steps='final', generator=g),
+        'generate B=8 16 steps w8a8')
+    head = w8a8.transformer.to_logits
+    h = torch.randn(8, cfg.num_tokens, cfg.dim, device='cuda', generator=g,
+                    dtype=torch.bfloat16)
+    what = 'w8a8 vocab head B=8 (host and device)'
+    prof = profile_window(lambda: head(h), what, activities=('cpu', 'cuda'),
+                          write=True)
+    check(what in {e.key for e in prof.key_averages()},
+          'profiling.annotate: the range is missing from the host trace')
+    w8a8.to('cpu')
+    moe.to('cuda')
     profile_window(lambda: moe.generate(
         text=ctx, timesteps=16, topk=5, decode_steps='final', generator=g),
         'MoE generate B=8 16 steps bf16 (paintmindv1-moe)')
     moe.to('cpu')
+    trained.to('cuda')
     trained.eval()
     imgs = seeded_images(8, 256, 3).bfloat16()
     ctx = ctx.bfloat16()
@@ -2319,7 +2713,9 @@ def main():
     phase('tiny pipeline', tiny_pipeline, totals)
     phase('512²', variant_512, totals)
     serving = phase('stage 2', stage2, totals)
-    serving.to('cpu')  # out of the later phases' peak memory
+    w8a8 = phase('int8', int8_phase, totals, serving)
+    w8a8.to('cpu')  # out of the later phases' peak memory
+    serving.to('cpu')
     moe = phase('MoE', moe_phase, totals)  # returned on the host
     before = torch.cuda.memory_allocated()
     phase('serving', serving_phase, totals)
@@ -2334,10 +2730,11 @@ def main():
     trained.to('cpu')  # out of the stage-1 phase's peak memory
     stage1_parts = phase('stage-1 training', stage1_training, totals)
     phase('command lines', command_lines, totals)
+    phase('device data and rFID', data_rfid_phase, totals)
     for name, n in totals.items():
         check(n > 0, f'{name} never launched on the main path')
-    phase('profiles', profiles, serving.to('cuda'), trained.to('cuda'),
-          stage1_parts, moe.to('cuda'))
+    phase('profiles', profiles, serving.to('cuda'), trained, stage1_parts,
+          moe, w8a8)
 
     meta = {
         'K1': ('flash_attention_fwd', 'cuda',

@@ -11,7 +11,10 @@ tree (the tests pass that in).  Three layout differences are bridged:
   * linear kernels: JAX stores ``kernel`` as (in, out), torch's ``weight``
     is (out, in); the MoE experts' stacked kernels (E, in, out) are
     ``StackedLinear`` weights (E, out, in);
-  * LayerNorm: JAX ``scale`` / ``bias`` are torch ``weight`` / ``bias``.
+  * LayerNorm: JAX ``scale`` / ``bias`` are torch ``weight`` / ``bias``;
+  * int8 linears (``nn.quant.QLinear``): ``kernel_q`` int8 (in, out) is the
+    module's (out, in) ``kernel_q``; ``scale`` (fp32, per output channel),
+    ``dyn`` (the ``w8a8`` marker, zero-size) and ``bias`` keep their names.
 
 Every other leaf (``pos_embed``, ``codebook``, ``mask_token``) keeps its
 name and shape.  Loading is strict: a key the module lacks, or a parameter
@@ -34,7 +37,8 @@ The stage-1 training trees, a list per layer, are carried in by
 ``stats``: ``<i>/conv/kernel`` HWIO, ``<i>/conv/bias``, ``<i>/bn/scale``,
 ``<i>/bn/bias``, ``<i>/bn/mean``, ``<i>/bn/var``) and
 ``load_lpips_params`` (``convs/<i>/kernel`` HWIO and ``/bias``,
-``lins/<i>/kernel`` (1, 1, C, 1)).  Torch convolutions are OIHW.
+``lins/<i>/kernel`` (1, 1, C, 1)), and the InceptionV3 tree by
+``load_inception_params``.  Torch convolutions are OIHW.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from torch import nn
 
 from ..nn.moe import StackedLinear
+from ..nn.quant import QLinear
 from ..utils.checkpoint import SEP, to_numpy, to_tensor
 
 TOWER_STACK = 'blocks'  # the tower node whose leaves are depth-stacked (T5)
@@ -52,15 +57,18 @@ TOWER_STACK = 'blocks'  # the tower node whose leaves are depth-stacked (T5)
 
 def to_state_dict(flat):
     """Flat JAX tree -> torch state_dict (CPU tensors)."""
+    flat = dict(to_tensor(k, v) for k, v in flat.items())
+    # a quantized linear's node: its 'scale' is no LayerNorm weight
+    quantized = {k.rsplit(SEP, 1)[0] for k in flat
+                 if k.endswith(SEP + 'kernel_q')}
     sd = {}
     for key, value in flat.items():
-        key, value = to_tensor(key, value)
         parts = key.split(SEP)
         leaf = parts[-1]
-        if leaf == 'kernel':
-            parts[-1] = 'weight'
+        if leaf in ('kernel', 'kernel_q'):
+            parts[-1] = 'weight' if leaf == 'kernel' else leaf
             value = value.transpose(-1, -2)
-        elif leaf == 'scale':
+        elif leaf == 'scale' and SEP.join(parts[:-1]) not in quantized:
             parts[-1] = 'weight'
         if 'layers' in parts[:-1]:
             at = parts.index('layers') + 1
@@ -104,16 +112,23 @@ def to_flat(module):
     """The reverse bridge: ``module``'s parameters as the flat
     ``{'/'-joined key: numpy array}`` tree of the JAX package, ready for
     ``utils.checkpoint.save_params``.  Linear and ``StackedLinear``
-    ``weight`` becomes ``kernel`` (its last two axes swapped), LayerNorm ``weight`` becomes ``scale``, and
-    the leaves of ``layers.{i}`` are restacked along a leading depth axis.
+    ``weight`` becomes ``kernel`` (its last two axes swapped), LayerNorm
+    ``weight`` becomes ``scale``, a ``QLinear``'s buffers are written beside
+    its bias (``kernel_q`` transposed), and the leaves of ``layers.{i}``
+    are restacked along a leading depth axis.
     A bf16 leaf is its raw uint16 payload under the key plus ``::bf16``."""
     leaves, stacks = {}, {}
     for prefix, mod in module.named_modules():
-        for name, value in mod.named_parameters(recurse=False):
+        tensors = list(mod.named_parameters(recurse=False))
+        if isinstance(mod, QLinear):
+            tensors += list(mod.named_buffers(recurse=False))
+        for name, value in tensors:
             value = value.detach().cpu()
             if isinstance(mod, (nn.Linear, StackedLinear)) \
                     and name == 'weight':
                 name, value = 'kernel', value.transpose(-1, -2)
+            elif name == 'kernel_q':
+                value = value.transpose(-1, -2)
             elif isinstance(mod, nn.LayerNorm) and name == 'weight':
                 name = 'scale'
             key = SEP.join(filter(None, [*prefix.split('.'), name]))
@@ -180,6 +195,21 @@ def load_lpips_params(module, tree):
         else:
             sd[f'convs.{i}.' + leaf.replace('kernel', 'weight')] = \
                 _hwio_to_oihw(v) if leaf == 'kernel' else v
+    return _load_strict(module, sd)
+
+
+def load_inception_params(module, tree):
+    """The JAX package's InceptionV3 tree (nested, as
+    ``models.inception.convert_inception`` returns it, or flat, as an
+    ``.npz`` holds it: ``<name>[/<branch>]/{kernel, scale, bias, mean,
+    var}``, kernels HWIO) into a ``models.inception.InceptionV3``, in
+    place.  Strict, as ``load_jax_params``."""
+    sd = {}
+    for key, v in flatten_tree(tree).items():
+        *path, leaf = key.split(SEP)
+        if leaf == 'kernel':
+            leaf, v = 'weight', _hwio_to_oihw(v)
+        sd['.'.join([*path, leaf])] = v.float()
     return _load_strict(module, sd)
 
 

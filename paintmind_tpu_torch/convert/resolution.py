@@ -7,7 +7,7 @@ extension, 1024 -> 4096 latent tokens; config.py).
 Standard ViT practice (DeiT/MAE fine-tuning): reshape the (1, g², D) table
 to its (g, g, D) grid, resize it to the new grid, flatten back.  The resize
 is ``jax.image.resize(..., 'cubic')`` (Keys a = -0.5, antialiased when it
-shrinks), through ``models.clip.resize_cubic``; ``F.interpolate``'s bicubic
+shrinks), through ``ops.image.resize_cubic``; ``F.interpolate``'s bicubic
 (a = -0.75, other edges) would give other tables.  All other weights
 transfer unchanged: the patch size is the same, only the token count grows.
 
@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from ..models.clip import resize_cubic
+from ..ops.image import resize_cubic
 
 
 def interpolate_pos_embed(pos, new_len):

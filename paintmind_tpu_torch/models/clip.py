@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.core import LayerNorm, Linear
+from ..ops.image import resize_cubic
 from .vqmodel import make_generator, patchify, resolve_device
 
 
@@ -152,45 +153,6 @@ class CLIPTextTransformer(nn.Module):
 # ---------------------------------------------------------------------------
 # Visual tower
 # ---------------------------------------------------------------------------
-
-def _keys_cubic(x):
-    """The Keys cubic kernel with a = -0.5 at |distance| x."""
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return torch.where(x >= 2.0, torch.zeros((), device=x.device), out)
-
-
-def resize_weights(n_in, n_out, device=None):
-    """(n_in, n_out) fp32 weights of one axis of ``jax.image.resize(...,
-    'cubic')`` (``compute_weight_mat``, antialiased, no translation)."""
-    inv_scale = 1.0 / (n_out / n_in)
-    kernel_scale = max(inv_scale, 1.0)  # widen the kernel to downsample
-    sample = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5)
-              * inv_scale - 0.5)
-    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32,
-                                        device=device)[:, None]).abs()
-    w = _keys_cubic(x / kernel_scale)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, 1.0),
-                    torch.zeros((), device=device))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros((), device=device))
-
-
-def resize_cubic(images, size):
-    """(B, H, W, C) -> (B, size, size, C) fp32, as ``jax.image.resize(images,
-    (B, size, size, C), 'cubic')``: one separable product per axis."""
-    images = images.float()
-    _, h, w, _ = images.shape
-    if h != size:
-        images = torch.einsum('bhwc,hy->bywc', images,
-                              resize_weights(h, size, images.device))
-    if w != size:
-        images = torch.einsum('bywc,wx->byxc', images,
-                              resize_weights(w, size, images.device))
-    return images
-
 
 class CLIPVisionTransformer(nn.Module):
     """``forward(images)``: (B, H, W, 3) in [-1, 1] -> (B, grid², width)

@@ -28,8 +28,9 @@ the JAX package draws.
 
 Conditioning: ``embed_text`` takes prompts, token ids or conditioning
 images through the pipeline's tower (``models/t5.py``, ``models/clip.py``),
-or precomputed (B, M, t5_dim) contexts.  Not ported yet: the
-pipeline-parallel and int8 branches (ROADMAP).
+or precomputed (B, M, t5_dim) contexts.  ``Pipeline.quantize`` swaps the
+transformer's linears for int8 ones (``nn/quant.py``).  Not ported yet:
+the pipeline-parallel branch (ROADMAP).
 """
 
 from __future__ import annotations
@@ -515,6 +516,7 @@ class Pipeline(nn.Module):
         self.image_size = cfg.image_size
         self.patch_size = cfg.patch_size
         self._generator = vm.make_generator(device, seed + 1)
+        self._quantized = None  # 'w8' | 'w8a8' after quantize()
 
     @property
     def device(self):
@@ -713,10 +715,35 @@ class Pipeline(nn.Module):
         return self.paint(img, keep, text, timesteps, topk, temperature,
                           generator, guidance_scale)
 
-    # -- not in this slice ----------------------------------------------
+    # -- quantization ----------------------------------------------------
 
-    def quantize(self, mode='w8a8', **kw):
-        raise _not_ported('int8 quantization', 9)
+    def quantize(self, mode='w8a8', *, head=True, min_dim=64):
+        """Post-training int8 quantization of the stage-2 transformer's
+        block linears (``nn.quant``: 'w8a8', dynamic per-token activations
+        and int8 products, or 'w8', weight-only) and, with ``head``, of the
+        (dim, 8192) vocab projection.  The stage-1 VQGAN stays in floating
+        point.  Call after ``from_pretrained``: a quantized pipeline loads
+        only quantized checkpoints of its own mode.  Returns self."""
+        from ..nn import quant
+        if self.config.num_experts:
+            raise NotImplementedError(
+                'int8 quantization of the MoE variant is not supported: '
+                'expert leaves are (depth, E, in, out) stacks the per-linear '
+                'quantizer does not cover, and partially-quantized blocks '
+                'would silently skew routing-vs-expert numerics')
+        if self._quantized:
+            raise RuntimeError(
+                f'already quantized ({self._quantized!r}) — quantization '
+                'is lossy and terminal for this object; build a fresh '
+                'Pipeline to pick a different mode')
+        tr = self.transformer
+        quant.quantize_tree(tr.layers, mode, min_dim=min_dim)
+        if head:
+            tr.to_logits = quant.quantize_linear(tr.to_logits, mode)
+        self._quantized = mode
+        return self
+
+    # -- not in this slice ----------------------------------------------
 
     def enable_pipeline_parallel(self, *a, **kw):
         raise _not_ported('pipeline-parallel decode', 10)
@@ -728,7 +755,18 @@ class Pipeline(nn.Module):
         ``.pth`` / ``.bin`` state dict (``utils.checkpoint.load_flat``)."""
         from ..convert.from_jax import load_jax_params
         from ..utils.checkpoint import load_flat
-        load_jax_params(self, load_flat(path, 'pipeline'))
+        try:
+            load_jax_params(self, load_flat(path, 'pipeline'))
+        except (KeyError, ValueError) as e:
+            if self._quantized:
+                # the module is int8 but the artifact floating (or another mode)
+                raise RuntimeError(
+                    'this pipeline was quantized in place (int8) and the '
+                    f'checkpoint does not match its quantized layout ({e}) '
+                    '— load the fp checkpoint into a fresh Pipeline and '
+                    'call .quantize(), or save/load quantized artifacts '
+                    'as a pair') from e
+            raise
         return self
 
     def save_pretrained(self, path):
@@ -740,4 +778,7 @@ class Pipeline(nn.Module):
 
     @property
     def num_params(self):
-        return sum(p.numel() for p in self.parameters())
+        """Elements of the parameter tree, as the JAX package counts its
+        leaves: an int8 pipeline's ``kernel_q``, ``scale`` and ``dyn``
+        buffers included."""
+        return sum(t.numel() for t in self.state_dict().values())

@@ -55,7 +55,7 @@ def build_parser():
                         'JPEGs only; unconditional)')
     p.add_argument('--device-cache', action='store_true',
                    help='cache the whole corpus in device memory and '
-                        'augment there (not ported)')
+                        'augment there (folder:<dir> only)')
     p.add_argument('--device', default='cuda',
                    help="device to train on ('cuda', 'cuda:1', or 'cpu')")
     return p
@@ -67,12 +67,8 @@ def main(argv=None):
 
     from ..config import ver2cfg
     from ..factory import create_pipeline_for_train
-    from ..models.pipeline import _not_ported
     from ..utils.trainer import PaintMindTrainer
     from ..utils.transform import stage2_transform
-
-    if args.device_cache:  # refuse before building anything
-        raise _not_ported('--device-cache (device-side data)', 11)
 
     # image size follows the version's stage-1 tokenizer config
     stage1_version = ver2cfg[args.version]['stage1']
@@ -96,9 +92,17 @@ def main(argv=None):
         raise SystemExit(f'unknown dataset spec {args.dataset!r}')
 
     train_loader = valid_loader = None
-    # hflip=False: stage-2 transform parity (no flip; reference
-    # transform.py:23-34 — flips would break text-image alignment)
-    if args.native_loader:
+    # hflip=False in both fast paths: stage-2 transform parity (no flip;
+    # reference transform.py:23-34 — flips would break text-image alignment)
+    if args.device_cache:
+        if kind != 'folder':
+            raise SystemExit('--device-cache needs a folder:<dir> dataset')
+        from ..utils.device_cache import make_split_cache_loaders
+        train_loader, valid_loader = make_split_cache_loaders(
+            dataset.paths, args.batch_size * args.grad_accum,
+            args.batch_size, valid_size=args.valid_size, hflip=False,
+            img_size=img_size, device=args.device)
+    elif args.native_loader:
         if kind != 'folder':
             raise SystemExit('--native-loader needs a folder:<dir> dataset')
         from ..native.fastloader import make_split_loaders

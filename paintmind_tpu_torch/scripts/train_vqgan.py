@@ -49,13 +49,14 @@ def build_parser():
                         'device->host syncs)')
     p.add_argument('--eval-rfid', action='store_true',
                    help='also compute rFID on the validation set each eval '
-                        '(not ported)')
+                        '(InceptionV3 pool3 on the device; rfid-rand without '
+                        'paintmind_tpu_torch/assets/inception_v3.npz)')
     p.add_argument('--native-loader', action='store_true',
                    help='use the C++ pipelined loader (folder:<dir> of '
                         'JPEGs only) instead of the threaded-PIL DataLoader')
     p.add_argument('--device-cache', action='store_true',
                    help='cache the whole corpus in device memory and '
-                        'augment there (not ported)')
+                        'augment there (folder:<dir> only)')
     p.add_argument('--device', default='cuda',
                    help="device to train on ('cuda', 'cuda:1', or 'cpu')")
     return p
@@ -67,15 +68,8 @@ def main(argv=None):
 
     from ..config import ver2cfg
     from ..factory import create_model
-    from ..models.pipeline import _not_ported
     from ..utils.trainer import VQGANTrainer
     from ..utils.transform import stage1_transform
-
-    # refuse before building anything
-    if args.device_cache:
-        raise _not_ported('--device-cache (device-side data)', 11)
-    if args.eval_rfid:
-        raise _not_ported('--eval-rfid (rFID)', 11)
 
     # image size follows the version config (e.g. vit-s-vqgan-512)
     img_size = ver2cfg[args.version]['enc']['image_size']
@@ -94,7 +88,14 @@ def main(argv=None):
         raise SystemExit(f'unknown dataset spec {args.dataset!r}')
 
     train_loader = valid_loader = None
-    if args.native_loader:
+    if args.device_cache:
+        if kind != 'folder':
+            raise SystemExit('--device-cache needs a folder:<dir> dataset')
+        from ..utils.device_cache import make_split_cache_loaders
+        train_loader, valid_loader = make_split_cache_loaders(
+            dataset.paths, args.batch_size * args.grad_accum,
+            args.batch_size, img_size=img_size, device=args.device)
+    elif args.native_loader:
         if kind != 'folder':
             raise SystemExit('--native-loader needs a folder:<dir> dataset')
         from ..native.fastloader import make_split_loaders
@@ -119,7 +120,8 @@ def main(argv=None):
         d_weight=args.d_weight, ema_decay=args.ema_decay,
         log_every=args.log_every,
         codebook_restart_every=args.codebook_restart_every,
-        train_loader=train_loader, valid_loader=valid_loader)
+        eval_rfid=args.eval_rfid, train_loader=train_loader,
+        valid_loader=valid_loader)
     if args.resume:
         trainer.resume(args.resume)
     trainer.train()

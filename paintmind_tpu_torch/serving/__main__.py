@@ -35,7 +35,10 @@ def main(argv=None):
                    help='conditioning-tower params (.npz), e.g. the tower.npz '
                         'of an image-variations pipeline (/variations)')
     p.add_argument('--quantize', choices=('w8', 'w8a8'), default=None,
-                   help='int8-quantize the stage-2 transformer (not ported)')
+                   help='int8-quantize the stage-2 transformer after '
+                        'loading (nn/quant.py): w8a8 = int8 products '
+                        '(cuBLASLt on the card), w8 = weight-only (int8 '
+                        'weights cast to bf16 per product)')
     p.add_argument('--device', default='cuda',
                    help="device to serve on ('cuda', 'cuda:1', or 'cpu')")
     args = p.parse_args(argv)
@@ -43,11 +46,9 @@ def main(argv=None):
     import torch
 
     from ..config import Config, ver2cfg
-    from ..models.pipeline import Pipeline, _not_ported
+    from ..models.pipeline import Pipeline
     from .server import serve
 
-    if args.quantize:  # refuse before building anything
-        raise _not_ported('int8 quantization (--quantize)', 9)
     if args.tower_checkpoint:
         from ..models.clip import load_image_tower
         text_encoder = load_image_tower(args.tower_checkpoint,
@@ -62,6 +63,8 @@ def main(argv=None):
                     device=args.device)
     if args.checkpoint:
         pipe.from_pretrained(args.checkpoint)
+    if args.quantize:
+        pipe.quantize(args.quantize)
     serve(pipe, args.host, args.port, max_batch=args.max_batch,
           max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
           defaults={'timesteps': args.timesteps, 'topk': args.topk})

@@ -30,8 +30,8 @@ per-request futures with (H, W, 3) float32 numpy images in [-1, 1].
 Not ported, with reasons: ``enable_persistent_cache`` (an XLA compile cache;
 eager PyTorch has no program to keep); ``mesh``, ``sequence_parallel`` and
 ``pp_microbatches`` (sharded and pipeline-parallel placements, ROADMAP queue
-A item 10: they raise); int8 pipelines raise in ``Pipeline.quantize``
-(item 9).  An MoE pipeline is served like any other; its capacity counts
+A item 10: they raise).  An int8 pipeline (``Pipeline.quantize``) is served
+like any other.  An MoE pipeline is served like any other; its capacity counts
 every row of a batch, the padded rows (copies of the first request)
 included, so its images depend on the batch they ran in, as in JAX.
 """

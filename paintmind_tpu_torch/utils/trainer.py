@@ -23,8 +23,20 @@ package's ``_sync_model`` leaves them in ``model.params``; the raw weights
 wait in the trainer (and in the saved state) and go back into the model at
 the next training step, so syncing changes no later update.
 
+Batches may come from any loader: host arrays, or device tensors from
+``utils.device_cache.DeviceCacheLoader``.  ``train_step`` hands a batch to
+the step function through ``torch.as_tensor(..., dtype=torch.float32,
+device=self.device)``, which returns a tensor already on the trainer's
+device and in fp32 as it is, so a cached batch never goes through the
+host; ``evaluate`` brings the images to the host only for its image grids
+and metrics.
+
+``VQGANTrainer(eval_rfid=True)`` adds the validation set's rFID
+(``utils.metrics.rfid``, InceptionV3 features on the trainer's device) to
+``evaluate()``'s log, under ``val rfid-inception`` or ``val rfid-rand``.
+
 One process, one device.  The multi-GPU options are not ported yet (ROADMAP
-queue A, 10), nor rFID (11).
+queue A, 10).
 """
 
 from __future__ import annotations
@@ -77,6 +89,13 @@ def masked_p_generator(rng=None):
 
 def _first_images(batch):
     return batch[0] if isinstance(batch, (tuple, list)) else batch
+
+
+def _host(imgs):
+    """Images (numpy, or a tensor on any device) -> fp32 numpy."""
+    if isinstance(imgs, torch.Tensor):
+        return imgs.detach().float().cpu().numpy()
+    return np.asarray(imgs, np.float32)
 
 
 class _TrainerBase:
@@ -252,8 +271,7 @@ class VQGANTrainer(_TrainerBase):
             if value:
                 raise _not_ported(f'VQGANTrainer({name}=...): multi-GPU '
                                   'training', 10)
-        if eval_rfid:
-            raise _not_ported('VQGANTrainer(eval_rfid=True): rFID', 11)
+        self.eval_rfid = eval_rfid
         self.vqvae = vqvae
         self.device = vqvae.device
         self.num_epoch = num_epoch
@@ -468,16 +486,22 @@ class VQGANTrainer(_TrainerBase):
 
     def evaluate(self):
         """Reconstruct the validation set (one encode per batch): PSNR,
-        codebook usage and perplexity into the log, an image grid of
-        (input, reconstruction) pairs per batch."""
+        codebook usage and perplexity into the log (and, with
+        ``eval_rfid``, the rFID of reconstructions against inputs), an
+        image grid of (input, reconstruction) pairs per batch."""
         self._sync_model()
-        all_ids, psnrs = [], []
+        all_ids, psnrs, reals, recs = [], [], [], []
         for i, batch in enumerate(self.valid_dl):
-            imgs = np.asarray(_first_images(batch), np.float32)
+            imgs = torch.as_tensor(_first_images(batch), dtype=torch.float32,
+                                   device=self.device)
             z, _, ids = self.vqvae.encode(imgs)
-            rec = self.vqvae.decode(z).float().cpu().numpy()
+            rec = _host(self.vqvae.decode(z))
+            imgs = _host(imgs)
             all_ids.append(ids.cpu().numpy())
             psnrs.append(psnr(rec, imgs))
+            if self.eval_rfid:
+                reals.append(imgs)
+                recs.append(rec)
             pairs = np.stack([imgs, rec], axis=1).reshape(-1, *imgs.shape[1:])
             save_image_grid(pairs, os.path.join(
                 self.image_saved_dir, f'step_{self.steps}_{i}.png'))
@@ -490,6 +514,13 @@ class VQGANTrainer(_TrainerBase):
             self.log.update(evals)
             if getattr(self, '_writer', None) is not None:
                 self._writer.log(evals, self.steps)
+        if self.eval_rfid and reals:
+            from .metrics import rfid
+            val, variant = rfid(np.concatenate(reals), np.concatenate(recs),
+                                device=self.device)
+            self.log.update({f'val {variant}': val})
+            if getattr(self, '_writer', None) is not None:
+                self._writer.log({f'val {variant}': val}, self.steps)
 
 
 class PaintMindTrainer(_TrainerBase):
@@ -732,8 +763,7 @@ class PaintMindTrainer(_TrainerBase):
                                        temperature=1.0, topk=5,
                                        save_interval=2,
                                        num_samples=len(imgs))
-            all_imgs = np.concatenate(
-                [np.asarray(imgs, np.float32)]
-                + [g.float().cpu().numpy() for g in gens], axis=0)
+            all_imgs = np.concatenate([_host(imgs)]
+                                      + [_host(g) for g in gens], axis=0)
             save_image_grid(all_imgs, os.path.join(
                 self.image_saved_dir, f'step_{self.steps}_{i}.png'))

@@ -232,17 +232,47 @@ def test_convert_checkpoint_matches_the_jax_script(tmp_path, monkeypatch,
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-@pytest.mark.parametrize('argv, item', [
-    (['train_vqgan', '--device-cache'], 11),
-    (['train_vqgan', '--eval-rfid'], 11),
-    (['train_paintmind', '--device-cache'], 11),
+@pytest.mark.parametrize('argv', [
+    ['train_vqgan', '--device-cache'],
+    ['train_vqgan', '--eval-rfid'],
+    ['train_paintmind', '--device-cache'],
 ])
-def test_unported_flags_raise_with_their_item(argv, item):
-    name, *flags = argv
-    with pytest.raises(NotImplementedError,
-                       match=rf'ROADMAP.md, queue A item {item}\)'):
-        PORT[name].main(['--dataset', 'folder:/no/such/dir', *flags,
-                         '--device', 'cpu'])
+def test_device_side_flags_run_on_a_folder(argv, tmp_path, monkeypatch):
+    """The device-side flags on a folder of 48 seeded JPEGs (one epoch at
+    B = 16): ``--device-cache`` trains from a
+    ``DeviceCacheLoader`` on the run's device, ``--eval-rfid`` logs the
+    validation rFID at each evaluation (here through a stand-in extractor
+    of colour statistics: the 2048-d one is held against JAX in
+    ``tests/test_torch_rfid.py``)."""
+    from paintmind_tpu_torch.utils import device_cache, metrics
+    name, flag = argv
+    monkeypatch.setattr(metrics, 'inception_extractor', lambda w, device: (
+        lambda x, batch: np.asarray(x, np.float64).reshape(
+            len(x), -1, 3).mean(1), 'rfid-rand'))
+    data = _jpegs(str(tmp_path / 'jpegs'), n=48)
+    common = ['--dataset', f'folder:{data}', '--batch-size', '16',
+              '--grad-accum', '1', '--epochs', '1', '--save-every', '1000',
+              '--sample-every', '1' if flag == '--eval-rfid' else '1000',
+              '--num-workers', '1', '--log-dir',
+              str(tmp_path / 'log'), '--result-folder', str(tmp_path / 'run'),
+              '--device', 'cpu', flag]
+    if name == 'train_vqgan':
+        run = train_vqgan.main(common + ['--version', 'torch-cli-vqgan',
+                                         '--perceptual', 'none'])
+    else:
+        stage1 = str(tmp_path / 'stage1.npz')
+        pt.create_model('vqgan', 'torch-cli-vqgan', pretrained=False,
+                        device='cpu').save_pretrained(stage1)
+        run = train_paintmind.main(common + [
+            '--version', 'torch-cli-pipeline', '--stage1-checkpoint', stage1,
+            '--valid-size', '4'])
+    assert run.steps == len(run.train_dl) >= 1
+    assert np.isfinite(run.log['loss'])
+    cached = isinstance(run.train_dl, device_cache.DeviceCacheLoader)
+    assert cached == (flag == '--device-cache')
+    if cached:
+        assert run.train_dl._data.device.type == 'cpu'
+    assert ('val rfid-rand' in run.log.data) == (flag == '--eval-rfid')
 
 
 def test_refusals(tmp_path, monkeypatch):

@@ -291,10 +291,19 @@ def test_pipeline_object_api(tpipe):
 
 
 def test_not_ported_branches_raise(tpipe):
-    for call in (lambda: tpipe.quantize('w8a8'),
-                 lambda: tpipe.enable_pipeline_parallel()):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            call()
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tpipe.enable_pipeline_parallel()
+    # int8 is ported: a quantized copy (the fixture stays floating point)
+    q = tpl.Pipeline(T_PIPE, stage1_pretrained=False, text_encoder=None,
+                     device='cpu')
+    q.load_state_dict(tpipe.state_dict())
+    assert q.quantize('w8a8', min_dim=16) is q and q._quantized == 'w8a8'
+    from paintmind_tpu_torch.nn.quant import QLinear
+    qlinears = [m for m in q.modules() if isinstance(m, QLinear)]
+    assert len(qlinears) == 2 * (4 + 4 + 2) + 1  # every block linear, head
+    # int8 kernels replace the weights; each adds its (out,) scale
+    assert q.num_params == tpipe.num_params + sum(m.out_features
+                                                  for m in qlinears)
     with pytest.raises(ValueError, match='checkpoint_path'):
         pt.create_model('vqgan', 'vit-s-vqgan', device='cpu')
 

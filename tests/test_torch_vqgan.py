@@ -631,8 +631,7 @@ def test_lpips_auto_fails_loudly_without_weights(tmp_path, jvq):
 
 
 @pytest.mark.parametrize('kwarg,item', [({'mesh': object()}, 10),
-                                        ({'zero_sharding': True}, 10),
-                                        ({'eval_rfid': True}, 11)])
+                                        ({'zero_sharding': True}, 10)])
 def test_vqgan_trainer_unported_options_raise(tmp_path, jvq, kwarg, item):
     with pytest.raises(NotImplementedError, match=f'queue A item {item}'):
         _vq_trainer(tmp_path, make_vq(jvq), **kwarg)
@@ -676,8 +675,9 @@ def test_vqmodel_training_api(jvq, tmp_path):
     ids = np.random.default_rng(0).integers(0, 64, 300)
     assert tmetrics.codebook_stats(torch.from_numpy(ids), 64) == \
         pytest.approx(jmetrics.codebook_stats(ids, 64))
-    with pytest.raises(NotImplementedError, match='queue A item 11'):
-        tmetrics.rfid(a, b)
+    fa, fb = a.reshape(-1, 48), b.reshape(-1, 48)  # 128 48-d "features"
+    assert tmetrics.fid(fa, fb) == pytest.approx(jmetrics.fid(fa, fb),
+                                                 rel=1e-6)
     pipe = pt.create_pipeline_for_train(
         'torch-port-vqgan-stage1-pipe', stage1_pretrained=False,
         text_encoder=None, device='cpu', seed=1)
