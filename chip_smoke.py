@@ -5,6 +5,7 @@
     python3 chip_smoke.py K3 K3r     # build and check these kernels only, then
                                      # stop (a short first run after a kernel
                                      # edit; prints no result line)
+    python3 chip_smoke.py multigpu   # build, then the multi-GPU phase only
 
 Phases, each printed on its own line(s); any failure raises and the script
 exits non-zero with no result line:
@@ -78,12 +79,21 @@ exits non-zero with no result line:
   7d. the device-side data tier and rFID: a ``DeviceCacheLoader`` on the
      card (eval batches equal a CPU loader's, train batches the crops of
      their draws), ``batched_transform`` card against CPU, the full-width
-     InceptionV3 card against CPU, the rFID of the shipped VQGAN's
-     reconstructions, and ``train_vqgan --device-cache --eval-rfid`` and
-     ``train_paintmind --device-cache``;
+     InceptionV3 card against CPU, and ``train_vqgan --device-cache
+     --eval-rfid`` (the run's one rFID) and ``train_paintmind
+     --device-cache``;
+  7e. multi-GPU at world size 1 over a real NCCL process group
+     (``multigpu_phase``): ``shard(mesh)`` and ``shard(mesh,
+     sequence_parallel=True)`` generate bit-equal to the unsharded
+     pipeline, and an engine over the mesh to ``generate`` of its padded
+     batch; ``PaintMindTrainer(mesh=, zero_sharding=True)`` bit-equal to
+     ``mesh=None`` over two updates, its ``save()`` resumed without a mesh;
+     ``pp_stack_apply`` at one stage against the plain stack (fp32);
+     ``VQGANTrainer(mesh=)`` bit-equal to ``mesh=None``; the collective
+     counters;
   8. ``utils.profiling.trace`` windows (device activity only, each inside
-     an ``annotate`` range) over one unguided ``generate`` of paintmindv1,
-     of its w8a8 form and of paintmindv1-moe, one stage-2 training
+     an ``annotate`` range) over one unguided ``generate`` of paintmindv1
+     and of paintmindv1-moe, one stage-2 training
      microbatch and one stage-1 microbatch: the ten device operations with
      the most time, and the device's busy share of each window (report
      only); a short window with host activity must show its range;
@@ -97,10 +107,12 @@ import base64
 import gc
 import hashlib
 import io
+import itertools
 import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1177,6 +1189,7 @@ def int8_layer(g):
         x_cpu = x.cpu()
         q = {m: quant.quantize_linear(lin, m) for m in quant.QMODES}
         q_cpu = {m: quant.quantize_linear(lin, m).to('cpu') for m in quant.QMODES}
+        ref_w8 = q_cpu['w8'](x_cpu)  # fp32 on the CPU, for both types
         for dtype in (torch.float32, torch.bfloat16):
             xd, xc = x.to(dtype), x_cpu.to(dtype)
             xq, sx = quant.quantize_activations(xd)
@@ -1187,18 +1200,23 @@ def int8_layer(g):
             acc_c = quant.int8_matmul(xq_c, q_cpu['w8a8'].kernel_q)
             check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), acc_c),
                   f'w8a8 {din}->{dout} {dtype}: int32 accumulators differ')
+            # the CPU output from its (exact, float64-made) accumulators, in
+            # linear_q's order: one CPU product per type, not two
+            wq = q_cpu['w8a8']
+            y_c = ((acc_c.float() * sx_c * wq.scale.float()).to(dtype)
+                   + wq.bias.to(dtype))
             for mode in quant.QMODES:
                 y = q[mode](xd)
                 check(torch.equal(y, q[mode](xd)),
                       f'{mode} {din}->{dout} {dtype}: second run differs')
                 if mode == 'w8a8':
-                    check(ulp_ok(y.cpu(), q_cpu[mode](xc)),
+                    check(ulp_ok(y.cpu(), y_c),
                           f'w8a8 {din}->{dout} {dtype}: card vs CPU beyond 1 ulp')
                     continue
-                ref = q_cpu[mode](x_cpu)  # fp32 on the CPU
-                err = ((y.float().cpu() - ref).abs().mean() / ref.abs().mean()
-                       if dtype == torch.bfloat16 else
-                       (y.cpu() - ref).abs().max() / ref.abs().max()).item()
+                err = ((y.float().cpu() - ref_w8).abs().mean()
+                       / ref_w8.abs().mean() if dtype == torch.bfloat16 else
+                       (y.cpu() - ref_w8).abs().max()
+                       / ref_w8.abs().max()).item()
                 check(err <= (1e-2 if dtype == torch.bfloat16 else 1e-5),
                       f'w8 {din}->{dout} {dtype}: card vs CPU rel err {err}')
         xb = x.bfloat16()
@@ -1217,9 +1235,9 @@ def int8_phase(totals, dense):
     (``int8_layer``); then ``dense`` (the stage-2 phase's bf16 pipeline)
     and, built from the same seed, a ``w8`` and a ``w8a8`` pipeline
     (``Pipeline.quantize``, head included): 16-step ``generate`` at B = 8,
-    top-k 5, unguided, each three times with its launches counted (K1 and
-    K3 at the stage-2 phase's counts) after a warm-up, images/s from the
-    median; the share of final ids that agree with the bf16 pipeline's on
+    top-k 5, unguided, each once with its launches counted (K1 and K3 at
+    the stage-2 phase's counts) after a warm-up, images/s from that run;
+    the share of final ids that agree with the bf16 pipeline's on
     the same K3 seed (a report: int8 moves logits, so sampled ids drift);
     three seeded requests through a ``GenerationEngine`` over the w8a8
     pipeline, equal bit for bit to ``Pipeline.generate`` of the padded
@@ -1246,15 +1264,12 @@ def int8_phase(totals, dense):
     def rate(pipe, what):
         pipe.generate(text=ctx, timesteps=2, topk=5, decode_steps='final',
                       generator=g)  # warm-up
-        secs = []
-        for i in range(3):
-            imgs, s = drive(lambda: pipe.generate(
-                text=ctx, timesteps=steps, topk=5, decode_steps='final',
-                generator=g)[-1], {'K1': depth * 2 * steps + dec, 'K3': steps},
-                totals, f'generate B=8 {steps} steps {what} run {i}')
-            check_images(imgs, f'{what} generate')
-            secs.append(s)
-        return 8 / float(np.median(secs))
+        imgs, sec = drive(lambda: pipe.generate(
+            text=ctx, timesteps=steps, topk=5, decode_steps='final',
+            generator=g)[-1], {'K1': depth * 2 * steps + dec, 'K3': steps},
+            totals, f'generate B=8 {steps} steps {what}')
+        check_images(imgs, f'{what} generate')
+        return 8 / sec
 
     rates = {'bf16': rate(dense, 'bf16')}
     ref = final_ids(dense)
@@ -1275,7 +1290,7 @@ def int8_phase(totals, dense):
         pipes[mode] = pipe
     pipes['w8'].to('cpu')
     w8a8 = pipes['w8a8']
-    log(f'int8 generate B=8 {steps} steps unguided (incl. decode, median of 3 '
+    log(f'int8 generate B=8 {steps} steps unguided (incl. decode, one run '
         f'after a warm-up): bf16 {rates["bf16"]:.3f}, w8 {rates["w8"]:.3f} '
         f'({rates["w8"] / rates["bf16"]:.3f}x), w8a8 {rates["w8a8"]:.3f} '
         f'({rates["w8a8"] / rates["bf16"]:.3f}x) images/s; {CARD}')
@@ -2006,6 +2021,306 @@ def variant_512(totals):
 
 
 # ---------------------------------------------------------------------------
+# phase 7e: multi-GPU at world size 1 over a real NCCL process group
+# ---------------------------------------------------------------------------
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def first_batches(loader, n):
+    return list(itertools.islice(iter(loader), n))
+
+
+def tensors_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def multigpu_phase(totals, dense):
+    """The multi-GPU layer (``paintmind_tpu_torch.parallel``) at world size
+    1, where every collective over the one rank is the identity, so each
+    placed run must give the unplaced one's bits.  ``multihost.initialize``
+    on a free local port and ``make_mesh()``: (data 1, model 1) over NCCL.
+    ``dense`` (the stage-2 phase's bf16 paintmindv1) is the reference:
+    ``shard(mesh)`` of a copy generates B = 8 for 16 steps bit-equal to it;
+    so does ``shard(mesh, sequence_parallel=True)``, and a
+    ``GenerationEngine`` over that copy (``mesh=``) answers three seeded
+    requests with ``generate``'s images of the padded batch, bit for bit.
+    Then, at paintmindv1's width cut to depth 2 (fp32 masters, bf16
+    compute): ``PaintMindTrainer(mesh=mesh, zero_sharding=True)`` and a
+    ``mesh=None`` trainer take two updates on the same batches, bit-equal;
+    the first one's ``save()`` resumes in a ``mesh=None`` trainer, whose
+    next update equals the first trainer's; ``pp_stack_apply`` at one stage
+    and two microbatches against the plain stack in fp32 (forward and
+    gradients within 1e-5 relative: microbatching changes the products' row
+    counts, and cuBLAS may pick other kernels for them); one
+    ``VQGANTrainer(mesh=mesh)`` update against ``mesh=None`` at vit-s-vqgan
+    width, bit-equal.  Prints the collective counters and the seconds of
+    the placed runs beside the unplaced ones; destroys the process group."""
+    import torch.distributed as dist
+    from paintmind_tpu_torch.parallel import collectives as C
+    from paintmind_tpu_torch.parallel import multihost
+    from paintmind_tpu_torch.parallel.mesh import make_mesh
+    from paintmind_tpu_torch.parallel.pipeline_parallel import pp_stack_apply
+    from paintmind_tpu_torch.nn.transformer import stack_apply
+    from paintmind_tpu_torch.serving.engine import fold_seeds
+    before = dict(totals)
+    info = multihost.initialize(f'127.0.0.1:{free_port()}', 1, 0,
+                                device='cuda')
+    try:
+        mesh = make_mesh()
+        check(dist.get_backend() == 'nccl' and info['process_count'] == 1
+              and mesh.shape == {'data': 1, 'model': 1}
+              and mesh.device.type == 'cuda', f'process group {info} {mesh}')
+        log(f'multi-GPU: {mesh} over {dist.get_backend()}, {info}')
+        _sharded_decode(totals, dense, mesh, C, fold_seeds)
+        _mesh_training(totals, mesh, C, pp_stack_apply, stack_apply)
+    finally:
+        multihost.shutdown()
+    check(not dist.is_initialized(), 'the process group outlived the phase')
+    launched = {k: totals[k] - before[k] for k in totals}
+    check(all(launched[k] > 0 for k in ('K1', 'K2', 'K3', 'K4')),
+          f'multi-GPU phase: a kernel never launched: {launched}')
+    log(f'multi-GPU phase: kernel launches {launched}; process group '
+        'destroyed')
+
+
+def _sharded_decode(totals, dense, mesh, C, fold_seeds):
+    cfg = dense.config
+    steps, depth, dec = 16, cfg.depth, cfg.vqc.dec.depth
+    expect = {'K1': depth * 2 * steps + dec, 'K3': steps}
+    g = torch.Generator(device='cuda').manual_seed(120)
+    ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
+
+    def gen(pipe):
+        return pipe.generate(text=ctx, timesteps=steps, topk=5,
+                             decode_steps='final',
+                             generator=torch.Generator(
+                                 device='cuda').manual_seed(121))[-1]
+
+    def copy():
+        pipe = pt.create_model('pipeline', 'paintmindv1', pretrained=False,
+                               stage1_checkpoint_path=ASSET,
+                               text_encoder=None, compute_dtype=torch.bfloat16)
+        pipe.load_state_dict(dense.state_dict())
+        return pipe
+
+    ref, _ = drive(lambda: gen(dense), expect, totals,
+                       'multi-GPU: unsharded generate B=8 16 steps bf16')
+    check_images(ref, 'unsharded generate')
+    def placed_generate(pipe, what):
+        C.reset_counts()
+        got, sec = drive(lambda: gen(pipe), expect, totals,
+                         f'multi-GPU: {what} generate B=8 16 steps bf16')
+        check(torch.equal(got, ref), f'{what}: generate differs from the '
+              'unsharded one at world size 1')
+        log(f'multi-GPU: {what}: collectives of the generate {C.snapshot()}')
+        return sec
+
+    pipe = copy().shard(mesh)
+    placed_generate(pipe, 'shard(mesh)')
+    # in turns on the warm card: placed, unplaced, unplaced, placed
+    turns = [_seconds(lambda: gen(p)) for p in (pipe, dense, dense, pipe)]
+    placed_s, plain_s = turns[0] + turns[3], turns[1] + turns[2]
+    del pipe
+    gc.collect()
+    pipe = copy().shard(mesh, sequence_parallel=True)
+    sp_s = placed_generate(pipe, 'shard(mesh, sequence_parallel=True)')
+    # what one collective over the one rank costs: 16 MB, the hidden state
+    # of a block at B = 8
+    h = torch.randn(8, 1024, 1024, device='cuda', dtype=torch.bfloat16)
+    per_ms = median_ms(lambda: C.all_reduce(h, mesh.group('model')), 20)
+    host = _seconds(lambda: [C.all_reduce(h, mesh.group('model'))
+                             for _ in range(20)]) / 20 * 1e3
+    seeds = [31, 32, 33]
+    C.reset_counts()
+    # the sequence-parallel pipeline, served as it is placed
+    with GenerationEngine(pipe, mesh=mesh, max_batch=4,
+                          max_wait_ms=200) as eng:
+        def served():
+            futs = [eng.submit(GenerateRequest(context=ctx[i],
+                                               timesteps=steps, topk=5,
+                                               seed=seeds[i]))
+                    for i in range(3)]
+            return [f.result(timeout=600) for f in futs]
+        got, _ = drive(served, expect, totals,
+                       'multi-GPU: GenerationEngine(pipe, mesh=mesh), 3 '
+                       'seeded requests in one batch of 4')
+        stats = eng.stats()
+    check(stats['batches'] == 1 and C.counts['broadcast'] >= 2,
+          f'engine under the mesh: {stats}, collectives {C.snapshot()}')
+    direct = dense.generate(
+        text=torch.cat([ctx[:3], ctx[:1]]), timesteps=steps, topk=5,
+        temperature=np.ones(4, np.float32), decode_steps='final',
+        generator=torch.Generator(device='cuda').manual_seed(
+            fold_seeds(seeds)))[-1].float().cpu().numpy()
+    check(all(np.array_equal(got[i], direct[i]) for i in range(3)),
+          'engine under the mesh: images differ from the unsharded '
+          'generate of its padded batch')
+    del pipe
+    log(f'multi-GPU generate B=8 16 steps bf16 at world size 1 (host clock): '
+        f'shard(mesh) {placed_s / 2:.4f} s against unsharded '
+        f'{plain_s / 2:.4f} s ({placed_s / plain_s:.3f}x; two runs each, '
+        f'in turns), shard(mesh, sequence_parallel=True) {sp_s:.4f} s '
+        f'(one run); both bit-equal to the unsharded images; the engine over '
+        f'the mesh bit-equal to generate of its padded batch; one all-reduce '
+        f'of 16 MB over the one rank {per_ms:.4f} ms on CUDA events, '
+        f'{host:.4f} ms of host time; {CARD}')
+
+
+def _mesh_training(totals, mesh, C, pp_stack_apply, stack_apply):
+    from paintmind_tpu_torch.parallel.mesh import full_state_dict
+    pt.register_version('paintmindv1-depth2',
+                        {**pt.ver2cfg['paintmindv1'], 'depth': 2})
+
+    def pipeline():
+        return pt.create_model('pipeline', 'paintmindv1-depth2',
+                               pretrained=False, stage1_checkpoint_path=ASSET,
+                               text_encoder=None)
+
+    with tempfile.TemporaryDirectory() as folder:
+        def trainer(model, sub, **kw):
+            return pt.PaintMindTrainer(
+                model, SeededDataset(26), num_epoch=1, valid_size=2, lr=1e-4,
+                warmup_steps=2, decay_steps=10, batch_size=8, num_workers=4,
+                save_every=100, sample_every=100,
+                result_folder=os.path.join(folder, sub),
+                log_dir=os.path.join(folder, 'log'),
+                text_embedder=text_embedder, seed=5, **kw)
+        plain = trainer(pipeline(), 'plain')
+        placed = trainer(pipeline(), 'mesh', mesh=mesh, zero_sharding=True)
+        batches = first_batches(plain.train_dl, 3)
+        enc, depth = 8, 2
+        expect = {'K1': enc + 2 * depth, 'K2': 1, 'K4': 2 * depth}
+        secs, losses = {'plain': [], 'mesh': []}, {'plain': [], 'mesh': []}
+        C.reset_counts()
+        for i, b in enumerate(batches[:2]):
+            for name, t in (('plain', plain), ('mesh', placed)):
+                m, sec = drive(lambda: t.train_step(b), expect, totals,
+                               f'multi-GPU: {name} trainer update {i} B=8')
+                losses[name].append(float(m['loss']))
+                secs[name].append(sec)
+            diff = [(n, (a - b).abs().max().item()) for (n, a), b in zip(
+                plain.model.named_parameters(), placed.model.parameters())
+                if not torch.equal(a, b)]
+            check(losses['plain'] == losses['mesh'] and not diff,
+                  f'DP + ZeRO trainer at world size 1 differs from mesh=None '
+                  f'after update {i}: losses {losses}, tensors {diff[:6]} '
+                  f'({len(diff)} differ)')
+        counts = C.snapshot()
+        check(counts['all_reduce'] > 0 and counts['all_gather'] > 0
+              and counts['reduce_scatter'] > 0 and placed._sync.sliced > 0,
+              f'DP + ZeRO update collectives {counts}, '
+              f'{placed._sync.sliced} sliced')
+        log(f'multi-GPU trainer (paintmindv1 width, depth 2, Lion, bf16 '
+            f'compute): two updates with DP + ZeRO-1 at world size 1 '
+            f'bit-equal to mesh=None; {placed._sync.sliced} optimizer states '
+            f'sliced; collectives of the two updates {counts}; seconds per '
+            f'update mesh=None {secs["plain"][1]:.4f}, DP + ZeRO '
+            f'{secs["mesh"][1]:.4f} (the second update; host clock); {CARD}')
+        path = placed.save()
+        # the mesh=None trainer's pipeline, its weights overwritten
+        resumed = trainer(plain.model, 'resumed').resume(path)
+        check(resumed.steps == 2 and tensors_equal(
+            resumed.model.trainable_parameters(),
+            placed.model.trainable_parameters()),
+            'a mesh=None trainer resumed from the mesh trainer\'s state '
+            'differs')
+        la = float(placed.train_step(batches[2])['loss'])
+        lb = float(resumed.train_step(batches[2])['loss'])
+        check(la == lb and tensors_equal(
+            resumed.model.trainable_parameters(),
+            placed.model.trainable_parameters()),
+            f'next update after the resume: {la} vs {lb}')
+        full = full_state_dict(placed.model)
+        check(all(torch.equal(full[k].cuda(), v)
+                  for k, v in placed.model.state_dict().items()),
+              'full_state_dict at world size 1 is not the state dict')
+        log('multi-GPU trainer: save() under the mesh resumes in a mesh=None '
+            'trainer bit for bit, and their next updates are equal')
+        placed.model.eval()  # no dropout: the two runs draw no masks
+        layers = placed.model.transformer.layers
+        del plain, resumed
+    gc.collect()
+
+    g = torch.Generator(device='cuda').manual_seed(130)
+    x = torch.randn(8, 1024, 1024, device='cuda', generator=g)
+    ctx = torch.randn(8, 77, 1024, device='cuda', generator=g)
+    w = torch.randn(8, 1024, 1024, device='cuda', generator=g)
+    grads = {}
+    for name, run, m in (
+            ('plain', lambda: stack_apply(layers, x, ctx), 1),
+            ('pp', lambda: pp_stack_apply(layers, x, ctx, mesh=mesh,
+                                          microbatches=2), 2)):
+        layers.zero_grad(set_to_none=True)
+        C.reset_counts()
+        out, _ = drive(lambda: _backward(run, w), {'K1': 4 * m, 'K4': 4 * m},
+                       totals, f'multi-GPU: {name} stack fp32 B=8 forward + '
+                       'backward')
+        grads[name] = (out, [p.grad.clone() for p in layers.parameters()])
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(
+        [grads['pp'][0], *grads['pp'][1]],
+        [grads['plain'][0], *grads['plain'][1]]))
+    check(rel <= 1e-5, f'pp_stack_apply S=1 M=2: max relative error {rel}')
+    log(f'multi-GPU: pp_stack_apply (1 stage, 2 microbatches) against the '
+        f'plain stack, fp32: forward and gradients max relative error '
+        f'{rel:.3e}; collectives {C.snapshot()}')
+    del layers, placed, grads
+    gc.collect()
+
+    # the discriminator's convolutions: cuDNN's default backward algorithms
+    # may add in any order, so the two runs take its deterministic ones
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    vq_steps = {}
+    with tempfile.TemporaryDirectory() as folder:
+        for name, kw in (('plain', {}), ('mesh', {'mesh': mesh})):
+            vq = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=ASSET)
+            t = pt.VQGANTrainer(
+                vq, SeededDataset(18), num_epoch=1, valid_size=2, lr=1e-4,
+                warmup_steps=2, batch_size=8, num_workers=4, save_every=100,
+                sample_every=100, result_folder=os.path.join(folder, name),
+                log_dir=os.path.join(folder, 'log'), perceptual_weights='none',
+                seed=5, **kw)
+            b = first_batches(t.train_dl, 1)[0]
+            C.reset_counts()
+            m, sec = drive(lambda: t.train_step(b),
+                           {'K1': 16, 'K2': 1, 'K4': 16}, totals,
+                           f'multi-GPU: {name} VQGANTrainer update B=8')
+            vq_steps[name] = (m, list(vq.parameters()) + list(
+                t.state['d'].parameters()), sec, C.snapshot())
+    torch.backends.cudnn.deterministic = deterministic
+    (ma, pa, sa, _), (mb, pb, sb, cb) = vq_steps['plain'], vq_steps['mesh']
+    diff = [(k, (ma[k] - mb[k]).abs().max().item()) for k in ma
+            if not torch.equal(ma[k], mb[k])]
+    diff += [(i, (a - b).abs().max().item()) for i, (a, b) in
+             enumerate(zip(pa, pb)) if not torch.equal(a, b)]
+    check(not diff and cb['all_reduce'] > 0, 'VQGANTrainer(mesh=mesh) at '
+          f'world size 1 differs from mesh=None: {diff[:8]} ({len(diff)}; '
+          f'collectives {cb})')
+    log(f'multi-GPU: VQGANTrainer(mesh=mesh) update bit-equal to mesh=None '
+        f'(VQGAN and discriminator); {sa:.3f} s vs {sb:.3f} s (host clock, '
+        f'first update); collectives {cb}')
+
+
+def _seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _backward(run, w):
+    out = run()
+    (out * w).sum().backward()
+    return out.detach()
+
+
+
+# ---------------------------------------------------------------------------
 # phase 7b: stage-1 (VQGAN) training
 # ---------------------------------------------------------------------------
 
@@ -2333,11 +2648,11 @@ def data_rfid_phase(totals):
     images, card against CPU within 1e-5.  The full-width InceptionV3 pool3
     (2048-d, seed-0 random features, fp32 with TF32 off) on 8 images, card
     against CPU within 1e-4 relative to the largest feature; ms per image
-    at the rFID batch of 32.  rFID of 32 seeded 256² images against their
-    reconstructions by the shipped ``vit_vq_photo.npz`` (value and
-    variant).  Then ``train_vqgan --device-cache --eval-rfid`` (one update
+    at the rFID batch of 32.  Then ``train_vqgan --device-cache
+    --eval-rfid`` (one update
     of four microbatches of B = 8 from the shipped weights, then
-    ``evaluate()`` with rFID on the 4 held-out images) and
+    ``evaluate()`` with rFID on the 4 held-out images: the phase's one rFID,
+    its 2048² matrix square root on the host) and
     ``train_paintmind --device-cache`` (one update of four microbatches of
     B = 8 on that run's export), with their seconds."""
     from paintmind_tpu_torch.models import inception as tinc
@@ -2415,22 +2730,6 @@ def data_rfid_phase(totals):
     log(f'InceptionV3 pool3 fp32, card vs CPU on 8 images: max rel err '
         f'{rel:.3e}; {ms_inc / 32:.3f} ms an image at B=32 (median of 3)')
     del net, net_cpu
-
-    vqgan = pt.create_model('vqgan', 'vit-s-vqgan', checkpoint_path=ASSET)
-    real = seeded_images(32, 256, 113)
-    rec, _ = drive(lambda: vqgan.reconstruct(real),
-                   {'K1': enc + dec, 'K2': 1}, totals,
-                   'rFID: reconstruct B=32 (shipped weights)')
-    t0 = time.perf_counter()
-    value, variant = metrics.rfid(real, rec)
-    sec_rfid = time.perf_counter() - t0
-    check(math.isfinite(value) and value >= 0 and variant == 'rfid-rand',
-          f'rFID {value} {variant}')
-    log(f'rFID of 32 seeded images vs their vit_vq_photo reconstructions: '
-        f'{value:.4f} ({variant}; random-feature InceptionV3, comparable '
-        f'within this package only), {sec_rfid:.2f} s (features on the card, '
-        f'the 2048² matrix square root on the host)')
-    del vqgan
 
     with tempfile.TemporaryDirectory() as tmp:
         data = write_jpegs(os.path.join(tmp, 'jpegs'), 40)
@@ -2604,13 +2903,13 @@ def profile_window(fn, what, activities=('cuda',), write=False):
 
 def profiles(serving, trained, stage1, moe, w8a8):
     """Where the time of one unguided ``generate`` (the stage-2 phase's
-    bf16 pipeline, the int8 phase's w8a8 one and the MoE phase's bf16
-    ``paintmindv1-moe``), of one stage-2 training microbatch (the training
-    phase's pipeline) and of one stage-1 microbatch's G loss and backward
-    (the stage-1 training phase's VQGAN, discriminator and LPIPS) goes on
-    the device.  A short window records host and device activity (the w8a8
-    vocab head on 8192 tokens), writes its trace file and must show its
-    ``annotate`` range."""
+    bf16 pipeline and the MoE phase's bf16 ``paintmindv1-moe``), of one
+    stage-2 training microbatch (the training phase's pipeline) and of one
+    stage-1 microbatch's G loss and backward (the stage-1 training phase's
+    VQGAN, discriminator and LPIPS) goes on the device.  A short window
+    records host and device activity (the int8 phase's w8a8 vocab head on
+    8192 tokens), writes its trace file and must show its ``annotate``
+    range."""
     cfg = serving.config
     g = torch.Generator(device='cuda').manual_seed(0)
     ctx = torch.randn(8, 77, cfg.t5_dim, device='cuda', generator=g)
@@ -2619,9 +2918,6 @@ def profiles(serving, trained, stage1, moe, w8a8):
         'generate B=8 16 steps bf16')
     serving.to('cpu')
     w8a8.to('cuda')
-    profile_window(lambda: w8a8.generate(
-        text=ctx, timesteps=16, topk=5, decode_steps='final', generator=g),
-        'generate B=8 16 steps w8a8')
     head = w8a8.transformer.to_logits
     h = torch.randn(8, cfg.num_tokens, cfg.dim, device='cuda', generator=g,
                     dtype=torch.bfloat16)
@@ -2676,8 +2972,11 @@ def main():
     checks = {'K1': check_k1, 'K2': check_k2, 'K3': check_k3,
               'K3r': check_k3_radix, 'K4': check_k4}
     only = sys.argv[1:]
-    if any(name not in checks for name in only):
-        sys.exit(f'usage: chip_smoke.py [{" ".join(checks)}]')
+    multigpu_only = only == ['multigpu']
+    if multigpu_only:
+        only = []
+    elif any(name not in checks for name in only):
+        sys.exit(f'usage: chip_smoke.py [{" ".join(checks)}] | multigpu')
     libraries = _build.KERNELS if not only else tuple(dict.fromkeys(
         lib for name in only for lib in KERNEL_LIBRARIES[name]))
     t0 = time.perf_counter()
@@ -2707,8 +3006,15 @@ def main():
         log(f'phase {what}: {time.perf_counter() - t0:.1f} s')
         return out
 
-    results = {name: phase(f'check {name}', fn, g) for name, fn in checks.items()}
     totals = {name: 0 for name in KERNEL_COUNTERS}
+    if multigpu_only:  # the multi-GPU phase alone, over its own reference
+        dense = pt.create_model('pipeline', 'paintmindv1', pretrained=False,
+                                stage1_checkpoint_path=ASSET,
+                                text_encoder=None, compute_dtype=torch.bfloat16)
+        phase('multi-GPU', multigpu_phase, totals, dense)
+        log(f'multi-GPU phase only: {time.perf_counter() - t_start:.1f} s')
+        return
+    results = {name: phase(f'check {name}', fn, g) for name, fn in checks.items()}
     phase('stage 1', stage1, totals)
     phase('tiny pipeline', tiny_pipeline, totals)
     phase('512²', variant_512, totals)
@@ -2728,6 +3034,8 @@ def main():
         f'{(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB')
     trained = phase('training', training, totals)
     trained.to('cpu')  # out of the stage-1 phase's peak memory
+    phase('multi-GPU', multigpu_phase, totals, serving.to('cuda'))
+    serving.to('cpu')
     stage1_parts = phase('stage-1 training', stage1_training, totals)
     phase('command lines', command_lines, totals)
     phase('device data and rFID', data_rfid_phase, totals)

@@ -108,7 +108,7 @@ def _load_strict(module, sd):
 
 
 @torch.no_grad()
-def to_flat(module):
+def to_flat(module, state=None):
     """The reverse bridge: ``module``'s parameters as the flat
     ``{'/'-joined key: numpy array}`` tree of the JAX package, ready for
     ``utils.checkpoint.save_params``.  Linear and ``StackedLinear``
@@ -116,30 +116,57 @@ def to_flat(module):
     ``weight`` becomes ``scale``, a ``QLinear``'s buffers are written beside
     its bias (``kernel_q`` transposed), and the leaves of ``layers.{i}``
     are restacked along a leading depth axis.
-    A bf16 leaf is its raw uint16 payload under the key plus ``::bf16``."""
+    A bf16 leaf is its raw uint16 payload under the key plus ``::bf16``.
+    ``state``: a whole state dict of a placed ``module`` (``parallel.mesh.
+    full_state_dict``) to write in place of the module's own tensors; a
+    layer this rank's pipeline stage does not hold takes the type of one
+    it does (a stack's layers are alike)."""
+    mods = dict(module.named_modules())
+    if state is None:
+        items = []
+        for prefix, mod in mods.items():
+            tensors = list(mod.named_parameters(recurse=False))
+            if isinstance(mod, QLinear):
+                tensors += list(mod.named_buffers(recurse=False))
+            items += [(prefix, mod, name, v) for name, v in tensors]
+    else:
+        items = []
+        for key, value in state.items():
+            prefix, _, name = key.rpartition('.')
+            mod = _owner(mods, prefix)
+            if name in mod._parameters or isinstance(mod, QLinear):
+                items.append((prefix, mod, name, value))
     leaves, stacks = {}, {}
-    for prefix, mod in module.named_modules():
-        tensors = list(mod.named_parameters(recurse=False))
-        if isinstance(mod, QLinear):
-            tensors += list(mod.named_buffers(recurse=False))
-        for name, value in tensors:
-            value = value.detach().cpu()
-            if isinstance(mod, (nn.Linear, StackedLinear)) \
-                    and name == 'weight':
-                name, value = 'kernel', value.transpose(-1, -2)
-            elif name == 'kernel_q':
-                value = value.transpose(-1, -2)
-            elif isinstance(mod, nn.LayerNorm) and name == 'weight':
-                name = 'scale'
-            key = SEP.join(filter(None, [*prefix.split('.'), name]))
-            m = re.fullmatch(r'(.*layers)/(\d+)/(.*)', key)
-            if m:
-                stacks.setdefault(f'{m[1]}/{m[3]}', {})[int(m[2])] = value
-            else:
-                leaves[key] = value
+    for prefix, mod, name, value in items:
+        value = value.detach().cpu()
+        if isinstance(mod, (nn.Linear, StackedLinear)) and name == 'weight':
+            name, value = 'kernel', value.transpose(-1, -2)
+        elif name == 'kernel_q':
+            value = value.transpose(-1, -2)
+        elif isinstance(mod, nn.LayerNorm) and name == 'weight':
+            name = 'scale'
+        key = SEP.join(filter(None, [*prefix.split('.'), name]))
+        m = re.fullmatch(r'(.*layers)/(\d+)/(.*)', key)
+        if m:
+            stacks.setdefault(f'{m[1]}/{m[3]}', {})[int(m[2])] = value
+        else:
+            leaves[key] = value
     for key, by_layer in stacks.items():
-        leaves[key] = torch.stack([by_layer[i] for i in range(len(by_layer))])
+        leaves[key] = torch.stack([by_layer[i] for i in sorted(by_layer)])
     return dict(to_numpy(k, v) for k, v in leaves.items())
+
+
+def _owner(mods, prefix):
+    if prefix in mods:
+        return mods[prefix]
+    m = re.fullmatch(r'(.*layers)\.(\d+)(.*)', prefix)
+    if m:
+        for name, mod in mods.items():
+            h = re.fullmatch(re.escape(m[1]) + r'\.\d+' + re.escape(m[3]),
+                             name)
+            if h:
+                return mod
+    raise KeyError(f'no module {prefix!r} to take the layout of')
 
 
 def flatten_tree(tree, prefix=''):

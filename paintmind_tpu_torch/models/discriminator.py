@@ -26,8 +26,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import sum_replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,15 +51,24 @@ class _BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(c, device=device))
 
 
-def _batch_norm(bn, x, train, momentum=0.1, eps=1e-5):
+def _batch_norm(bn, x, train, momentum=0.1, eps=1e-5, group=None):
     """x: (B, C, H, W).  Train: batch statistics, and the running ones moved
     in place (``(1 − m)·running + m·batch``, the variance unbiased); eval:
-    the running ones.  fp32 inside, the input's type out."""
+    the running ones.  fp32 inside, the input's type out.  ``group``: the
+    data-parallel group whose ranks' rows form the batch (sync-BN: the
+    statistics of the global batch, as the JAX package's discriminator
+    computes them on the global array)."""
     x32 = x.float()
-    if train:
+    if train and group is not None:
+        n = x.shape[0] * x.shape[2] * x.shape[3] * dist.get_world_size(group)
+        mean = sum_replicated(x32.sum(dim=(0, 2, 3)), group) / n
+        var = sum_replicated(torch.square(
+            x32 - mean.view(1, -1, 1, 1)).sum(dim=(0, 2, 3)), group) / n
+    elif train:
         mean = x32.mean(dim=(0, 2, 3))
         var = x32.var(dim=(0, 2, 3), correction=0)
         n = x.shape[0] * x.shape[2] * x.shape[3]
+    if train:
         with torch.no_grad():
             bn.running_mean.mul_(1 - momentum).add_(momentum * mean)
             bn.running_var.mul_(1 - momentum).add_(
@@ -99,6 +111,7 @@ class Discriminator(nn.Module):
                              norm=True, **kw))
         layers.append(_Layer(cfg.ndf * nf_mult, 1, bias=True, norm=False, **kw))
         self.layers = nn.ModuleList(layers)
+        self.sync_group = None  # data parallelism: global batch statistics
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
@@ -128,7 +141,7 @@ class Discriminator(nn.Module):
             b = None if layer.conv.bias is None else layer.conv.bias.to(x.dtype)
             x = F.conv2d(x, w, b, stride=stride, padding=1)
             if layer.bn is not None:
-                x = _batch_norm(layer.bn, x, train)
+                x = _batch_norm(layer.bn, x, train, group=self.sync_group)
             if i < last:
                 x = F.leaky_relu(x, 0.2)
         return x.permute(0, 2, 3, 1)

@@ -56,9 +56,10 @@ class MoECondTransformer(CondTransformer):
         capacity counts every token of the call, so a row's logits depend on
         the other rows of its batch."""
         x, context = self.embed(x, context)
-        x, aux = moe_stack_apply(self.layers, x, context, backend=backend,
-                                 generator=generator, remat=remat)
-        return self.head_project(self.norm(x)), aux
+        x, aux = moe_stack_apply(self.layers, self._seq_split(x), context,
+                                 backend=backend, generator=generator,
+                                 remat=remat)
+        return self.head_project(self._seq_gather(self.norm(x))), aux
 
 
 def moe_masked_loss(transformer, tokens, labels, mask, context=None, *,

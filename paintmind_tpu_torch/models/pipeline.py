@@ -29,13 +29,20 @@ the JAX package draws.
 Conditioning: ``embed_text`` takes prompts, token ids or conditioning
 images through the pipeline's tower (``models/t5.py``, ``models/clip.py``),
 or precomputed (B, M, t5_dim) contexts.  ``Pipeline.quantize`` swaps the
-transformer's linears for int8 ones (``nn/quant.py``).  Not ported yet:
-the pipeline-parallel branch (ROADMAP).
+transformer's linears for int8 ones (``nn/quant.py``).
+
+Multi-GPU (``parallel/``): ``shard(mesh)`` carves the pipeline for
+tensor (and, for an MoE transformer, expert) parallelism over the mesh's
+'model' axis, optionally with the stage-2 hidden state sharded along the
+sequence; ``enable_pipeline_parallel(mesh, microbatches)`` stages the
+stage-2 stack over it (GPipe).  Every rank of the job runs the same decode
+on the same batch in lockstep, and every rank's result is the whole one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import threading
 
@@ -44,6 +51,7 @@ import torch
 from torch import nn
 
 from ..config import Config, ver2cfg
+from ..nn.core import rand_rows
 from ..ops.sampling import fused_gumbel_topk_sample
 from ..ops.sampling import gumbel_noise as _gumbel
 from . import vqmodel as vm
@@ -148,7 +156,7 @@ def random_masking(x, mask_token, mask_ratio, *, generator=None, noise=None):
     len_mask = max(int(np.float32(l) * np.float32(mask_ratio)), 1)
     len_keep = l - len_mask
     if noise is None:
-        noise = torch.rand(n, l, device=x.device, generator=generator)
+        noise = rand_rows((n, l), device=x.device, generator=generator)
     # stable sorts: equal noise values rank in index order, as jnp.argsort
     ids_shuffle = torch.argsort(noise, dim=1, stable=True)
     rank = torch.argsort(ids_shuffle, dim=1, stable=True)
@@ -169,7 +177,7 @@ def masked_ce_loss(logits, labels, mask, label_smoothing=0.1):
 
 def pipeline_loss(pipe, img, context, mask_ratio, *, generator=None,
                   noise=None, backend=None, vq_backend='auto', remat=False,
-                  return_aux=False):
+                  return_aux=False, transformer_apply=None):
     """Training forward -> scalar loss (reference generate.py:136-146).
     ``img``: (B, H, W, C) in [-1, 1], in the compute type; ``context``: the
     (B, M, t5_dim) text embedding or None (CFG dropout).  The VQGAN is
@@ -183,14 +191,16 @@ def pipeline_loss(pipe, img, context, mask_ratio, *, generator=None,
     to the masked CE.  ``return_aux=True`` -> ``(loss, metrics)``: for the
     MoE versions ``{'lb loss', 'router z', 'dropped', 'expert load'}``
     (detached; ``expert load`` the (E,) top-1 fractions), ``{}`` for the
-    dense model."""
+    dense model.  ``transformer_apply(transformer, x, context, ...)`` runs
+    the transformer in its place (the pipeline-parallel apply)."""
     with torch.no_grad():
         z_q, _, ids = pipe.vqgan.encode(img, backend=backend,
                                         vq_backend=vq_backend)
     x, mask = random_masking(z_q.detach(), pipe.mask_token, mask_ratio,
                              generator=generator, noise=noise)
-    out = pipe.transformer(x, context, backend=backend, generator=generator,
-                           remat=remat)
+    run = (pipe.transformer if transformer_apply is None else
+           functools.partial(transformer_apply, pipe.transformer))
+    out = run(x, context, backend=backend, generator=generator, remat=remat)
     cfg = pipe.config
     if not cfg.num_experts:
         loss = masked_ce_loss(out, ids, mask)
@@ -241,6 +251,9 @@ def _transformer_logits(pipe, tokens, context, guidance_scale, *, cfg,
         neg_context = (neg_context.to(dtype)
                        if neg_context is not None else None)
     tr = pipe.transformer
+    if getattr(tr, '_pp', None) is not None:
+        return _pp_logits(tr, tokens, context, guidance_scale, cfg, backend,
+                          neg_context)
     if cfg.num_experts:
         return _moe_logits(tr, tokens, context, guidance_scale, backend,
                            neg_context)
@@ -270,6 +283,31 @@ def _transformer_logits(pipe, tokens, context, guidance_scale, *, cfg,
         uncond = tr(tokens, None, backend=backend, return_hidden=True)
     # guidance is affine and the head is one linear map for both branches,
     # so mixing the hidden states before it equals mixing the logits
+    return tr.head_project(uncond + scale * (cond - uncond))
+
+
+def _pp_logits(tr, tokens, context, guidance_scale, cfg, backend,
+               neg_context):
+    """Pipeline-parallel decode (the JAX package's ``pp`` branch): the stack
+    runs the GPipe schedule; guidance mixes the branches' hidden states
+    before the shared head for the dense model and the logits for MoE, in
+    two passes (no fused 2B batch, which would halve a microbatch)."""
+    from ..parallel.pipeline_parallel import transformer_apply_for
+    pp = tr._pp
+    run = functools.partial(transformer_apply_for(tr, pp.mesh,
+                                                  pp.microbatches),
+                            tr, tokens, backend=backend)
+    if cfg.num_experts:
+        if guidance_scale is None or context is None:
+            return run(context)[0]
+        scale = _guidance(guidance_scale, tokens)
+        cond, uncond = run(context)[0], run(neg_context)[0]
+        return uncond + scale * (cond - uncond)
+    if guidance_scale is None or context is None:
+        return run(context)
+    scale = _guidance(guidance_scale, tokens)
+    cond = run(context, return_hidden=True)
+    uncond = run(neg_context, return_hidden=True)
     return tr.head_project(uncond + scale * (cond - uncond))
 
 
@@ -450,11 +488,6 @@ def generate_ids(pipe, init_ids, context=None, *, cfg: PipelineConfig,
 # Object API
 # ---------------------------------------------------------------------------
 
-def _not_ported(what, item):
-    return NotImplementedError(f'{what} is not ported to paintmind_tpu_torch '
-                               f'yet (ROADMAP.md, queue A item {item})')
-
-
 class Pipeline(nn.Module):
     """Frozen VQGAN (``vqgan``) + conditional transformer (``transformer``)
     + ``mask_token``: the parameter tree of ``paintmind_tpu``'s Pipeline.
@@ -517,6 +550,7 @@ class Pipeline(nn.Module):
         self.patch_size = cfg.patch_size
         self._generator = vm.make_generator(device, seed + 1)
         self._quantized = None  # 'w8' | 'w8a8' after quantize()
+        self.mesh = None  # after shard() / enable_pipeline_parallel()
 
     @property
     def device(self):
@@ -731,6 +765,11 @@ class Pipeline(nn.Module):
                 'expert leaves are (depth, E, in, out) stacks the per-linear '
                 'quantizer does not cover, and partially-quantized blocks '
                 'would silently skew routing-vs-expert numerics')
+        if self.mesh is not None:
+            raise RuntimeError('quantize() before shard(): a row-parallel '
+                               'scale is taken over all input features, so '
+                               'the carve must cut an already-quantized '
+                               'layer')
         if self._quantized:
             raise RuntimeError(
                 f'already quantized ({self._quantized!r}) — quantization '
@@ -743,10 +782,56 @@ class Pipeline(nn.Module):
         self._quantized = mode
         return self
 
-    # -- not in this slice ----------------------------------------------
+    # -- multi-GPU placements --------------------------------------------
 
-    def enable_pipeline_parallel(self, *a, **kw):
-        raise _not_ported('pipeline-parallel decode', 10)
+    def shard(self, mesh=None, sequence_parallel=False):
+        """Carve this pipeline for ``mesh`` (``parallel.mesh.shard_params``
+        with ``pipeline_param_spec``): megatron tensor parallelism for the
+        stage-2 transformer (vocab head over 'model'), expert parallelism
+        for an MoE transformer, the VQGAN's stacks likewise.  With
+        ``sequence_parallel`` the stage-2 hidden state is also sharded along
+        the sequence between the sublayers (the 512² / 4096-token layout).
+        Returns self; serve it with ``GenerationEngine(pipe, mesh=mesh)``."""
+        from ..parallel.mesh import check_mesh, pipeline_param_spec, \
+            shard_params
+        if mesh is None:
+            raise ValueError('shard() needs a mesh: pass one '
+                             '(parallel.mesh.make_mesh)')
+        check_mesh(mesh, 'shard()')
+        if getattr(self.transformer, '_pp', None) is not None:
+            raise RuntimeError('this pipeline is staged for pipeline '
+                               'parallelism; build another to shard')
+        if sequence_parallel and self.num_tokens % mesh.size('model'):
+            raise ValueError(f'sequence parallelism: {self.num_tokens} tokens '
+                             f"do not divide over model={mesh.size('model')}")
+        shard_params(self, mesh, pipeline_param_spec(self),
+                     sequence_parallel=sequence_parallel)
+        self.mesh = mesh
+        return self
+
+    def enable_pipeline_parallel(self, mesh=None, microbatches=2):
+        """Run every later decode (generate / sample / paint) with the
+        stage-2 stack GPipe-pipelined over the mesh's 'model' axis: this
+        rank keeps its stage's layers only (``parallel.pipeline_parallel.
+        shard_for_pp``).  Batch sizes must be divisible by the
+        microbatches.  Returns self."""
+        from ..parallel.mesh import check_mesh
+        from ..parallel.pipeline_parallel import shard_for_pp
+        if mesh is None:
+            raise ValueError('enable_pipeline_parallel needs a mesh: pass '
+                             'one (parallel.mesh.make_mesh)')
+        check_mesh(mesh, 'enable_pipeline_parallel')
+        stages = mesh.size('model')
+        if stages < 2:
+            raise ValueError(f"mesh 'model' axis is {stages} — pipeline "
+                             'parallelism needs >= 2 stages '
+                             '(make_mesh(model_parallel=N))')
+        if self.config.depth % stages:
+            raise ValueError(f'depth {self.config.depth} must be '
+                             f'divisible by {stages} pipeline stages')
+        shard_for_pp(self.transformer, mesh, int(microbatches))
+        self.mesh = mesh
+        return self
 
     # -- checkpointing ---------------------------------------------------
 
@@ -771,10 +856,10 @@ class Pipeline(nn.Module):
 
     def save_pretrained(self, path):
         """Write every parameter as a ``.npz`` in the JAX package's layout,
-        which ``paintmind_tpu``'s ``Pipeline.from_pretrained`` reads."""
-        from ..convert.from_jax import to_flat
-        from ..utils.checkpoint import save_params
-        return save_params(path, to_flat(self))
+        which ``paintmind_tpu``'s ``Pipeline.from_pretrained`` reads (a
+        sharded pipeline writes its whole tensors: ``save_placed``)."""
+        from ..utils.checkpoint import save_placed
+        return save_placed(self, path)
 
     @property
     def num_params(self):

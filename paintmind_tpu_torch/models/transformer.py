@@ -4,7 +4,12 @@ learned pos-embed -> depth x {self-attn, cross-attn(context), SwiGLU} ->
 LN -> to_logits (dim -> n_embed).  ``context_proj`` exists only when
 context_dim != dim.  With ``context=None`` the cross-attention sublayers
 self-attend: the unconditional branch of classifier-free guidance.  In
-training mode the attention sublayers apply dropout at ``cfg.dropout``."""
+training mode the attention sublayers apply dropout at ``cfg.dropout``.
+
+Under a placement (``parallel.mesh.shard_params`` sets ``tp``) the vocab
+head is column-parallel and its logits are all-gathered, so the sampler
+sees whole rows; with sequence parallelism the blocks run on this rank's
+slice of the sequence, gathered back after the final LayerNorm."""
 
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from torch import nn
 
 from ..nn.core import LayerNorm, Linear, init_module_
 from ..nn.transformer import make_stack, stack_apply
+from ..parallel.tensor_parallel import gather_seq, split_seq, vocab_logits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +55,7 @@ class CondTransformer(nn.Module):
         if cfg.has_context_proj:
             self.context_proj = Linear(cfg.context_dim, cfg.dim, bias=False,
                                        **kw)
+        self.tp = None
 
     @staticmethod
     def _make_layers(cfg, **kw):
@@ -64,7 +71,17 @@ class CondTransformer(nn.Module):
 
     def head_project(self, h):
         """Vocab projection of a post-LN hidden state, in its dtype."""
-        return self.to_logits(h)
+        if self.tp is None:
+            return self.to_logits(h)
+        return vocab_logits(self.to_logits, h, self.tp)
+
+    def _seq_split(self, x):
+        seq = self.tp is not None and self.tp.sequence
+        return split_seq(x, self.tp) if seq else x
+
+    def _seq_gather(self, x):
+        seq = self.tp is not None and self.tp.sequence
+        return gather_seq(x, self.tp) if seq else x
 
     def embed(self, x, context):
         """``token_proj`` and the position table on the tokens; the context
@@ -87,8 +104,8 @@ class CondTransformer(nn.Module):
         ``remat``: recompute each block in the backward pass instead of
         keeping its activations."""
         x, context = self.embed(x, context)
-        x = stack_apply(self.layers, x, context, backend=backend,
-                        cfg_halves=cfg_halves, generator=generator,
-                        remat=remat)
-        x = self.norm(x)
+        x = stack_apply(self.layers, self._seq_split(x), context,
+                        backend=backend, cfg_halves=cfg_halves,
+                        generator=generator, remat=remat)
+        x = self._seq_gather(self.norm(x))
         return x if return_hidden else self.head_project(x)

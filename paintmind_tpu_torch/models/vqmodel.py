@@ -292,10 +292,8 @@ class VQModel(nn.Module):
     def save_pretrained(self, path):
         """Every parameter as a ``.npz`` in the JAX package's layout, which
         ``paintmind_tpu``'s ``VQModel.from_pretrained`` reads."""
-        from ..convert.from_jax import to_flat
-        from ..utils.checkpoint import save_params
-        save_params(path, to_flat(self))
-        return path
+        from ..utils.checkpoint import save_placed
+        return save_placed(self, path)
 
     @property
     def num_params(self):

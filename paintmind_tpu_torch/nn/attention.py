@@ -20,6 +20,12 @@ classifier-free guidance).  The attention itself runs in the JAX layout
 In training mode ``forward`` applies dropout to the output projection, from
 an explicit generator; ``forward_cfg_halves`` is a sampling-only path and
 stays deterministic, as in the JAX package.
+
+Tensor parallelism (``tp``, set by ``parallel.mesh.shard_params``): the
+module holds this rank's heads (``heads`` is the local count, q/k/v
+column-parallel), ``to_out`` is row-parallel and its partial outputs are
+summed over 'model' (``parallel.tensor_parallel``).  ``tp=None`` is the
+one-device path.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_plain
+from ..parallel import collectives as C
+from ..parallel.tensor_parallel import enter, row_linear
 from .core import Linear
 from .core import dropout as apply_dropout
 
@@ -76,6 +84,22 @@ class Attention(nn.Module):
         self.to_k = Linear(context_dim, inner, bias=False, **kw)
         self.to_v = Linear(context_dim, inner, bias=False, **kw)
         self.to_out = Linear(inner, query_dim, **kw)
+        self.tp = None
+
+    def _enter(self, x, context):
+        """The (x, context) the projections read: as given, or under
+        tensor parallelism passed into the column-parallel products (a
+        sequence-sharded x gathered whole)."""
+        if self.tp is None:
+            return x, context
+        x = enter(x, self.tp)
+        return x, None if context is None else C.copy_to(context,
+                                                         self.tp.group)
+
+    def _out(self, out):
+        if self.tp is None:
+            return self.to_out(out)
+        return row_linear(self.to_out, out, self.tp)
 
     def _split(self, t):
         return t.reshape(t.shape[0], t.shape[1], self.heads, self.dim_head)
@@ -83,12 +107,13 @@ class Attention(nn.Module):
     def forward(self, x, context=None, *, backend=None, generator=None):
         """x: (B, N, Dq); context: (B, M, Dc) or None (self-attention).
         ``generator`` feeds the dropout mask in training mode."""
+        x, context = self._enter(x, context)
         ctx = x if context is None else context
         q = self._split(self.to_q(x))
         k = self._split(self.to_k(ctx))
         v = self._split(self.to_v(ctx))
         out = attention_core(q, k, v, self.dim_head ** -0.5, backend)
-        out = self.to_out(out.reshape(x.shape[0], x.shape[1], -1))
+        out = self._out(out.reshape(x.shape[0], x.shape[1], -1))
         return apply_dropout(out, self.dropout, generator=generator,
                              training=self.training)
 
@@ -97,6 +122,7 @@ class Attention(nn.Module):
         [conditional; unconditional] halves, ``context`` is (B, M, Dc).  The
         first B rows attend to ``context``, the last B self-attend; the Q and
         output projections run once at 2B."""
+        x, context = self._enter(x, context)
         b = x.shape[0] // 2
         q = self._split(self.to_q(x))
         ctx = context.to(x.dtype)
@@ -107,4 +133,4 @@ class Attention(nn.Module):
         out_u = attention_core(q[b:], self._split(self.to_k(xu)),
                                self._split(self.to_v(xu)), scale, backend)
         out = torch.cat([out_c, out_u], dim=0)
-        return self.to_out(out.reshape(x.shape[0], x.shape[1], -1))
+        return self._out(out.reshape(x.shape[0], x.shape[1], -1))

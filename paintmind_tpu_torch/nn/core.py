@@ -7,6 +7,8 @@ except LayerNorm statistics, which always run in fp32.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -35,6 +37,35 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+_rows = contextvars.ContextVar('paintmind_global_rows', default=None)
+
+
+@contextlib.contextmanager
+def global_rows(offset, total):
+    """Under data parallelism: the per-row random draws inside (masking
+    noise, dropout masks, the gradient penalty's mix) are the rows
+    [offset, offset + b) of one draw for the ``total`` rows of the global
+    batch, so every rank draws from the same generator what a single
+    device would, and keeps its own rows."""
+    token = _rows.set((int(offset), int(total)))
+    try:
+        yield
+    finally:
+        _rows.reset(token)
+
+
+def rand_rows(shape, *, device=None, generator=None):
+    """``torch.rand(shape)``, or this rank's rows of the global batch's
+    draw inside ``global_rows``."""
+    rows = _rows.get()
+    if rows is None:
+        return torch.rand(shape, device=device, generator=generator)
+    offset, total = rows
+    full = torch.rand((total,) + tuple(shape[1:]), device=device,
+                      generator=generator)
+    return full[offset:offset + shape[0]]
+
+
 def dropout(x, rate, *, generator=None, training=False):
     """Inverted dropout (``paintmind_tpu/nn/core.py::dropout``): keep each
     element with probability ``1 - rate`` and scale the kept ones by
@@ -44,7 +75,7 @@ def dropout(x, rate, *, generator=None, training=False):
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    mask = rand_rows(x.shape, device=x.device, generator=generator) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -1,11 +1,16 @@
 """SwiGLU feed-forward (``paintmind_tpu/nn/mlp.py``): a fused input
-projection ``w12`` to 2·hidden features, ``silu(x1) * x2``, then ``w3``."""
+projection ``w12`` to 2·hidden features, ``silu(x1) * x2``, then ``w3``.
+
+Tensor parallelism (``tp``): ``w12`` holds this rank's ``[w1_r | w2_r]``
+rows and ``w3`` the matching input columns (row-parallel, summed over
+'model')."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import enter, row_linear
 from .core import Linear
 
 
@@ -20,7 +25,11 @@ class SwiGLU(nn.Module):
         hidden = swiglu_hidden_dim(mlp_dim)
         self.w12 = Linear(dim, 2 * hidden, device=device, dtype=dtype)
         self.w3 = Linear(hidden, dim, device=device, dtype=dtype)
+        self.tp = None
 
     def forward(self, x):
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        if self.tp is None:
+            x1, x2 = self.w12(x).chunk(2, dim=-1)
+            return self.w3(F.silu(x1) * x2)
+        x1, x2 = self.w12(enter(x, self.tp)).chunk(2, dim=-1)
+        return row_linear(self.w3, F.silu(x1) * x2, self.tp)

@@ -20,6 +20,19 @@ Routing is GShard / Switch style with static shapes:
     ``mean(logsumexp(logits)²)``, the dropped fraction and the per-expert
     top-1 load ``f_e``.
 
+Placement.  Expert parallelism (``tp``, set by ``parallel.mesh``): the
+experts' E axis is carved over 'model' (this rank holds E/tp of them), the
+router stays whole.  Every rank of a model group holds the same tokens, so
+no all-to-all is needed: each routes all of them, runs its own experts on
+their slots, and the combine is an all-reduce.  ``'auto'`` dispatch is then
+``'dense'``, as the JAX package's ``_auto_dispatch`` picks it for a mesh
+that shards the experts.  Data parallelism (``route_group``, the 'data'
+group, set by the trainers): JAX routes the global batch, so capacity,
+slot order and the routing statistics come from every data shard's tokens;
+here each rank all-gathers the (k, E) assignment counts of the others to
+place its own assignments in the global slot order, and the statistics are
+summed over the group.
+
 The experts are stacked: ``experts.w12`` and ``experts.w3`` are
 ``StackedLinear`` layers with weight (E, out, in) and bias (E, out), run as
 one batched product (``torch.baddbmm``) over an (E, C, D) buffer.  The JAX
@@ -32,8 +45,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import collectives as C
+from ..parallel.tensor_parallel import enter
 
 from .attention import Attention
 from .core import LayerNorm, Linear
@@ -102,6 +119,8 @@ class MoESwiGLU(nn.Module):
         self.num_selected = num_selected
         self.capacity_factor = capacity_factor
         self.dispatch = dispatch
+        self.tp = None            # expert parallelism over 'model'
+        self.route_group = None   # data parallelism: route the global batch
 
     def forward(self, x):
         return moe_swiglu(self, x, self.num_selected, self.capacity_factor,
@@ -113,22 +132,25 @@ def capacity(tokens, k, num_experts, capacity_factor):
     return max(1, int(tokens * k / num_experts * capacity_factor + 0.999))
 
 
-def route(module, xt, num_selected, capacity_factor):
+def route(module, xt, num_selected, capacity_factor, group=None):
     """The routing of (T, D) tokens: ``(logits, probs, gate, idx, pos,
     keep, cap)``.  ``logits`` / ``probs`` (T, E) fp32; ``gate`` (T, k) the
     renormalised top-k probabilities, ``idx`` (T, k) their experts (a stable
     descending sort: ties go to the lower index); ``pos`` (T, k) each
     assignment's place in its expert's queue, slot-major; ``keep`` (T, k)
-    ``pos < cap`` and a positive gate."""
+    ``pos < cap`` and a positive gate.  ``group``: the data-parallel group
+    whose ranks' tokens (in rank order after this rank's) form the global
+    batch the capacity and the queue positions count."""
     e = module.num_experts
     k = min(num_selected, e)
     t = xt.shape[0]
+    ranks = 1 if group is None else dist.get_world_size(group)
     logits = module.router(xt.float())
     probs = torch.softmax(logits, dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = srt.values[:, :k], srt.indices[:, :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    cap = capacity(t, k, e, capacity_factor)
+    cap = capacity(t * ranks, k, e, capacity_factor)
     # slot-major queue: the k·T assignments in (slot, token) order, each
     # placed after the earlier ones to its expert.  The one-hot is (E, k·T)
     # so that the scan runs along the inner axis: down the outer axis of a
@@ -137,8 +159,23 @@ def route(module, xt, num_selected, capacity_factor):
     flat = (experts == idx.t().reshape(1, -1)).int()       # (E, k·T)
     before = flat.cumsum(1, dtype=torch.int32) - flat
     pos = (before * flat).sum(0).reshape(k, t).t()         # (T, k) int64
+    if group is not None:
+        pos = pos + _global_offsets(flat, idx, k, t, e, group)
     keep = (pos < cap) & (gate > 0)
     return logits, probs, gate, idx, pos, keep, cap
+
+
+def _global_offsets(flat, idx, k, t, e, group):
+    """Per assignment, the number of assignments to its expert that come
+    before this rank's in the global slot-major order but not on this rank:
+    the other ranks' in earlier slots, and the earlier ranks' in its own."""
+    counts = flat.reshape(e, k, t).sum(-1).t().contiguous()   # (k, E)
+    every = C.all_gather(counts[None], group, 0)              # (R, k, E)
+    r = dist.get_rank(group)
+    total = every.sum(0)
+    others_earlier = (total.cumsum(0) - total) - (counts.cumsum(0) - counts)
+    off = others_earlier + every[:r].sum(0)                   # (k, E)
+    return torch.gather(off, 1, idx.t()).t()
 
 
 def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
@@ -153,21 +190,29 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
     off), runs the experts as one batched product pair and gathers the
     outputs back (the spare row reads 0); ``'dense'`` is the one-hot
     (T, E, C) einsum form.  The two give the same routing and the same
-    result up to rounding.  ``'auto'`` is ``'gather'``: the JAX package
-    picks ``'dense'`` only under a mesh that shards the experts, and the
-    port has no expert-parallel mesh."""
+    result up to rounding.  ``'auto'`` is ``'dense'`` when the experts are
+    carved over a model axis of more than one rank and ``'gather'``
+    otherwise (the JAX package's ``_auto_dispatch``)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f'dispatch {dispatch!r} not in {DISPATCHES}')
+    tp = module.tp
+    if dispatch == 'auto':
+        dispatch = 'dense' if tp is not None and tp.size > 1 else 'gather'
+    if tp is not None and tp.sequence:  # whole sequence, as in the blocks
+        x = enter(x, tp)
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
     t, e = xt.shape[0], module.num_experts
+    group = module.route_group
     logits, probs, gate, idx, pos, keep, cap = route(
-        module, xt, num_selected, capacity_factor)
+        module, xt, num_selected, capacity_factor, group)
     k = idx.shape[1]
     dt = x.dtype
     gk = gate.to(dt) * keep.to(dt)                          # (T, k)
-
-    if dispatch == 'dense':
+    if tp is not None:
+        y = _expert_parallel(module, xt, idx, pos, keep, gk, cap, dispatch,
+                             tp)
+    elif dispatch == 'dense':
         pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
         sel = F.one_hot(idx, e).to(dt)                      # (T, k, E)
         pos_oh = pos_oh.to(dt)                              # (T, k, C)
@@ -188,14 +233,74 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
         # fp32 and round once, as in the dense form's product
         y = torch.bmm(gk[:, None, :], picked)[:, 0]
 
-    frac = F.one_hot(idx[:, 0], e).float().mean(0)          # top-1 f_e
-    aux = {
-        'lb_loss': e * (frac * probs.mean(0)).sum(),
-        'router_z': (torch.logsumexp(logits, dim=-1) ** 2).mean(),
-        'dropped': 1.0 - keep.float().mean(),
+    if tp is not None and tp.sequence:
+        y = C.local_slice(y.reshape(*lead, -1), tp.group, 1)
+        lead = y.shape[:-1]
+    return y.reshape(*lead, y.shape[-1]), _aux(logits, probs, idx, keep, e,
+                                               group)
+
+
+def _aux(logits, probs, idx, keep, e, group):
+    """The routing statistics; under data parallelism over the global batch
+    (each rank adds the same replicated values into its loss, so the sums
+    carry their gradient back summed too, ``sum_replicated``)."""
+    if group is None:
+        frac = F.one_hot(idx[:, 0], e).float().mean(0)      # top-1 f_e
+        return {
+            'lb_loss': e * (frac * probs.mean(0)).sum(),
+            'router_z': (torch.logsumexp(logits, dim=-1) ** 2).mean(),
+            'dropped': 1.0 - keep.float().mean(),
+            'expert_load': frac,
+        }
+    t = idx.shape[0] * dist.get_world_size(group)
+    with torch.no_grad():
+        counts = torch.cat([F.one_hot(idx[:, 0], e).float().sum(0),
+                            keep.float().sum().reshape(1)])
+        C.all_reduce(counts, group)
+    frac = counts[:e] / t
+    stats = C.sum_replicated(torch.cat([
+        probs.sum(0), (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]]),
+        group)
+    return {
+        'lb_loss': e * (frac * (stats[:e] / t)).sum(),
+        'router_z': stats[e] / t,
+        'dropped': 1.0 - counts[e] / (t * idx.shape[1]),
         'expert_load': frac,
     }
-    return y.reshape(*lead, y.shape[-1]), aux
+
+
+def _expert_parallel(module, xt, idx, pos, keep, gk, cap, dispatch, tp):
+    """This rank's experts on their slots, the combine summed over
+    'model'.  The replicated tokens and gates enter through ``copy_to``
+    (their gradients from the local experts are summed over the ranks)."""
+    e, t, d = module.num_experts, xt.shape[0], xt.shape[1]
+    k = idx.shape[1]
+    el = module.experts.w12.weight.shape[0]                  # local experts
+    lo = tp.rank * el
+    dt = xt.dtype
+    x_in = xt if tp.sequence else C.copy_to(xt, tp.group)
+    g_in = gk if tp.sequence else C.copy_to(gk, tp.group)
+    if dispatch == 'dense':
+        pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
+        sel = F.one_hot(idx, e).to(dt)[..., lo:lo + el]      # (T, k, El)
+        pos_oh = pos_oh.to(dt)
+        disp = torch.einsum('tke,tkc->tec', sel * keep[..., None].to(dt),
+                            pos_oh)
+        comb = torch.einsum('tke,tkc->tec', g_in[..., None] * sel, pos_oh)
+        expert_out = module.experts(torch.einsum('tec,td->ecd', disp, x_in))
+        y = torch.einsum('tec,ecd->td', comb, expert_out)
+    else:
+        mine = keep & (idx >= lo) & (idx < lo + el)
+        cell = torch.where(mine, (idx - lo) * cap + pos, el * cap).reshape(-1)
+        x_rep = x_in[:, None, :].expand(t, k, d).reshape(t * k, d)
+        buf = torch.index_put(x_in.new_zeros(el * cap + 1, d), (cell,), x_rep)
+        expert_out = module.experts(buf[:-1].view(el, cap, d))
+        out = F.pad(expert_out.reshape(el * cap, -1), (0, 0, 0, 1))
+        picked = out[cell].view(t, k, -1)
+        y = torch.bmm(g_in[:, None, :], picked)[:, 0]
+    if tp.sequence:
+        return C.all_reduce(y, tp.group)
+    return C.reduce_from(y, tp.group)
 
 
 class MoEBlock(nn.Module):

@@ -11,6 +11,9 @@ schedule, and an optional ``max_grad_norm``.  What they return steps like any
 ``torch.optim.Optimizer``; with a ``max_grad_norm`` the gradients are first
 clipped to that global norm, and with a schedule the rate of update number
 ``count`` (0 for the first) is written into the parameter groups before it.
+Under a mesh the trainers set ``clip_fn`` to the norm over the mesh
+(``parallel.data_parallel.clip_by_global_norm``: each carved or sliced
+tensor counted once across its group).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ def _scheduled(cls):
             lr = learning_rate(0) if self.schedule else learning_rate
             super().__init__(params, lr=lr, **kw)
             self.max_grad_norm = max_grad_norm
+            self.clip_fn = None  # None: torch.nn.utils.clip_grad_norm_
             self.count = 0  # updates taken; saved in the state dict
 
         @torch.no_grad()
@@ -67,7 +71,8 @@ def _scheduled(cls):
             params = [p for g in self.param_groups for p in g['params']
                       if p.grad is not None]
             if self.max_grad_norm is not None:
-                torch.nn.utils.clip_grad_norm_(params, self.max_grad_norm)
+                clip = self.clip_fn or torch.nn.utils.clip_grad_norm_
+                clip(params, self.max_grad_norm)
             if self.schedule is not None:
                 for group in self.param_groups:
                     group['lr'] = self.schedule(self.count)

@@ -6,6 +6,7 @@ same options and defaults, plus ``--device`` (default ``cuda``).
     python -m paintmind_tpu_torch.scripts.generate "a prompt" --checkpoint ...
     python -m paintmind_tpu_torch.scripts.convert_checkpoint in.pt out.npz
 
-Each module has ``main(argv=None)``.  One card needs no device mesh: the
-multi-GPU options wait for ROADMAP queue A item 10.
+Each module has ``main(argv=None)``.  Run alone they train on one card;
+the training commands under ``torchrun --nproc_per_node N -m ...`` train
+data-parallel over the N ranks (``parallel.mesh.launch_mesh``).
 """

@@ -1,7 +1,9 @@
 """Stage-2 MaskGIT training on one card (README recipe defaults:
 reference README.md:168-191 — adamw/lion, lr 1e-4→1e-5, warmup 10k,
 wd 0.05, decay 80k, batch 16, accum 8, bf16).  The JAX package's
-``scripts/train_paintmind.py`` with ``--device``; one card needs no mesh.
+``scripts/train_paintmind.py`` with ``--device``.  Under ``torchrun --nproc_per_node N`` it
+trains data-parallel over the N ranks (one pure-DP mesh, as the JAX
+script builds over every device); run alone, on one card.
 The port downloads nothing: without ``--stage1-checkpoint`` it needs
 ``--stage1-random``."""
 
@@ -64,6 +66,10 @@ def build_parser():
 def main(argv=None):
     """Train; returns the trainer."""
     args = build_parser().parse_args(argv)
+    from ..parallel.mesh import launch_mesh
+    mesh = launch_mesh(args.device)
+    if mesh is not None:
+        args.device = str(mesh.device)
 
     from ..config import ver2cfg
     from ..factory import create_pipeline_for_train
@@ -126,10 +132,13 @@ def main(argv=None):
         num_workers=args.num_workers, remat=args.remat,
         ema_decay=args.ema_decay, cfg_p=args.cfg_p,
         valid_size=args.valid_size, train_loader=train_loader,
-        valid_loader=valid_loader)
+        valid_loader=valid_loader, mesh=mesh)
     if args.resume:
         trainer.resume(args.resume)
     trainer.train()
+    if mesh is not None:
+        from ..parallel.multihost import shutdown
+        shutdown()
     return trainer
 
 

@@ -1,7 +1,9 @@
 """Stage-1 ViT-VQGAN training on one card (README recipe defaults:
 reference README.md:81-101 — lr 1e-4→5e-5, warmup 50k from 1e-6, decay 100k,
 batch 16, accum 8, bf16, clip 1.0).  The JAX package's
-``scripts/train_vqgan.py`` with ``--device``; one card needs no mesh."""
+``scripts/train_vqgan.py`` with ``--device``.  Under ``torchrun --nproc_per_node N`` it
+trains data-parallel over the N ranks (one pure-DP mesh, as the JAX
+script builds over every device); run alone, on one card."""
 
 import argparse
 
@@ -65,6 +67,10 @@ def build_parser():
 def main(argv=None):
     """Train; returns the trainer."""
     args = build_parser().parse_args(argv)
+    from ..parallel.mesh import launch_mesh
+    mesh = launch_mesh(args.device)
+    if mesh is not None:
+        args.device = str(mesh.device)
 
     from ..config import ver2cfg
     from ..factory import create_model
@@ -121,10 +127,13 @@ def main(argv=None):
         log_every=args.log_every,
         codebook_restart_every=args.codebook_restart_every,
         eval_rfid=args.eval_rfid, train_loader=train_loader,
-        valid_loader=valid_loader)
+        valid_loader=valid_loader, mesh=mesh)
     if args.resume:
         trainer.resume(args.resume)
     trainer.train()
+    if mesh is not None:
+        from ..parallel.multihost import shutdown
+        shutdown()
     return trainer
 
 

@@ -5,6 +5,11 @@ Example:
   python -m paintmind_tpu_torch.serving --checkpoint ./results/pipeline.npz \\
       --stage1-checkpoint paintmind_tpu/assets/vit_vq_photo.npz --port 8000
   curl -s localhost:8000/generate -d '{"timesteps": 16, "seed": 0}'
+
+On N GPUs of one host, under torchrun, the pipeline is tensor-parallel over
+the N ranks (rank 0 serves HTTP, the others run its batches in lockstep):
+  torchrun --nproc_per_node N -m paintmind_tpu_torch.serving \\
+      --stage1-checkpoint ...
 """
 
 import argparse
@@ -46,6 +51,7 @@ def main(argv=None):
     import torch
 
     from ..config import Config, ver2cfg
+    from ..parallel import multihost
     from ..models.pipeline import Pipeline
     from .server import serve
 
@@ -56,6 +62,13 @@ def main(argv=None):
                                         device=args.device)
     else:
         text_encoder = None if args.no_text_encoder else 'auto'
+    engine_kw = {}
+    if multihost.launched():  # every rank on the 'model' axis
+        multihost.initialize(device='cpu' if args.device == 'cpu' else 'cuda')
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(model_parallel=multihost.world_size())
+        args.device = str(mesh.device)
+        engine_kw = dict(mesh=mesh)
     pipe = Pipeline(config=Config(ver2cfg[args.version]),
                     stage1_pretrained=False,
                     stage1_checkpoint_path=args.stage1_checkpoint,
@@ -67,7 +80,9 @@ def main(argv=None):
         pipe.quantize(args.quantize)
     serve(pipe, args.host, args.port, max_batch=args.max_batch,
           max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
-          defaults={'timesteps': args.timesteps, 'topk': args.topk})
+          defaults={'timesteps': args.timesteps, 'topk': args.topk},
+          **engine_kw)
+    multihost.shutdown()
 
 
 if __name__ == '__main__':

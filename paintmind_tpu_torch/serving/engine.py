@@ -27,11 +27,22 @@ per-request futures with (H, W, 3) float32 numpy images in [-1, 1].
     ``numpy.random.default_rng()``.  As in JAX, a seeded request is
     reproducible only for an identical batch composition.
 
+Multi-GPU (``mesh=``, ``sequence_parallel=``, ``pp_microbatches=``): the
+engine places the pipeline (``Pipeline.shard`` or
+``enable_pipeline_parallel``, with the JAX package's checks; under pipeline
+parallelism every bucket is a multiple of dp × microbatches), or serves it
+as it is when it is already placed on that mesh.  The JAX
+engine drives every device from one process; here there is one process per
+GPU.  Rank 0 takes the requests and runs the queue, the dispatch thread
+(and the HTTP server); before each batch it broadcasts the batch (its
+requests, contexts included, and its seed) to the other ranks, which run
+``follow()``: the same batch in lockstep, until the stop message that
+``close()`` sends.  The JAX engine's restoring of the active mesh on
+``close()`` has no counterpart: the port keeps no process-wide mesh.
+
 Not ported, with reasons: ``enable_persistent_cache`` (an XLA compile cache;
-eager PyTorch has no program to keep); ``mesh``, ``sequence_parallel`` and
-``pp_microbatches`` (sharded and pipeline-parallel placements, ROADMAP queue
-A item 10: they raise).  An int8 pipeline (``Pipeline.quantize``) is served
-like any other.  An MoE pipeline is served like any other; its capacity counts
+eager PyTorch has no program to keep).  An int8 pipeline
+(``Pipeline.quantize``, before ``shard``) is served like any other.  An MoE pipeline is served like any other; its capacity counts
 every row of a batch, the padded rows (copies of the first request)
 included, so its images depend on the batch they ran in, as in JAX.
 """
@@ -49,7 +60,8 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from ..models.pipeline import _not_ported
+from ..parallel import collectives as C
+from ..parallel import multihost
 
 
 @dataclasses.dataclass
@@ -106,6 +118,16 @@ class PaintRequest:
                 self.guidance_scale is not None)
 
 
+def _host_request(req):
+    """``req`` with its tensors as host arrays, to broadcast."""
+    fields = {}
+    for f in ('context', 'image'):
+        v = getattr(req, f, None)
+        if isinstance(v, torch.Tensor):
+            fields[f] = v.detach().float().cpu().numpy()
+    return dataclasses.replace(req, **fields) if fields else req
+
+
 class EngineOverloaded(RuntimeError):
     """Raised by submit() when the bounded request queue is full."""
 
@@ -144,10 +166,38 @@ class GenerationEngine:
     def __init__(self, pipeline, *, max_batch=16, max_wait_ms=20.0,
                  latency_window=512, max_queue=None, mesh=None,
                  sequence_parallel=False, pp_microbatches=None):
-        if mesh is not None or sequence_parallel or pp_microbatches:
-            raise _not_ported('serving a sharded or pipeline-parallel '
-                              'placement (mesh=, sequence_parallel=, '
-                              'pp_microbatches=)', 10)
+        self._min_bucket = 1
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh
+            check_mesh(mesh, 'GenerationEngine')
+        if mesh is None and (sequence_parallel or pp_microbatches):
+            raise ValueError('sequence_parallel and pp_microbatches need '
+                             'mesh= (parallel.mesh.make_mesh)')
+        if pp_microbatches:
+            if sequence_parallel:
+                raise ValueError(
+                    'sequence_parallel is not supported together with '
+                    'pp_microbatches: the GPipe decode shards the batch, '
+                    'not the token axis — serve the 512² variant either '
+                    'sharded (mesh= + sequence_parallel=True) OR '
+                    'pipelined, not both')
+            # checked before enable_pipeline_parallel changes the pipeline
+            self._min_bucket = mesh.size('data') * int(pp_microbatches)
+            if int(max_batch) % self._min_bucket:
+                raise ValueError(
+                    f'max_batch {max_batch} must be divisible by dp × '
+                    f'pp_microbatches = {self._min_bucket}')
+        if mesh is not None and pipeline.mesh is not None:
+            # a pipeline its owner already placed on this mesh is served
+            # as it is
+            if pipeline.mesh is not mesh:
+                raise ValueError('the pipeline is placed on another mesh')
+        elif pp_microbatches:
+            pipeline.enable_pipeline_parallel(mesh, pp_microbatches)
+        elif mesh is not None:
+            pipeline.shard(mesh, sequence_parallel=sequence_parallel)
+        self.mesh = mesh
+        self.leader = mesh is None or multihost.is_main_process()
         self.pipeline = pipeline
         self.max_batch = int(max_batch)
         self.max_wait = float(max_wait_ms) / 1000.0
@@ -159,14 +209,19 @@ class GenerationEngine:
         self._counters = {'requests': 0, 'batches': 0, 'batched_requests': 0,
                           'errors': 0, 'padded_slots': 0, 'rejected': 0}
         self._seed_rng = np.random.default_rng()
-        self._thread = threading.Thread(target=self._dispatch_loop,
-                                        name='pm-serving-dispatch',
-                                        daemon=True)
-        self._thread.start()
+        self._thread = None
+        if self.leader:
+            self._thread = threading.Thread(target=self._dispatch_loop,
+                                            name='pm-serving-dispatch',
+                                            daemon=True)
+            self._thread.start()
 
     # -- public API --------------------------------------------------------
 
     def submit(self, request) -> Future:
+        if not self.leader:
+            raise RuntimeError('only rank 0 takes requests; the other ranks '
+                               'run follow()')
         if self._closed:
             raise RuntimeError('engine is closed')
         if isinstance(request, (GenerateRequest, PaintRequest)) \
@@ -218,10 +273,39 @@ class GenerationEngine:
 
     def close(self, timeout=None):
         """Stop taking requests, run what was queued before, then stop the
-        dispatch thread."""
+        dispatch thread (and, under a mesh, the followers)."""
         self._closed = True
+        if self._thread is None:
+            return
         self._queue.put(None)
         self._thread.join(timeout)
+
+    def follow(self):
+        """A rank other than 0: run the batches rank 0 broadcasts, in
+        lockstep, until ``close()`` on rank 0 stops them.  Returns the
+        number of batches run."""
+        if self.leader:
+            raise RuntimeError('rank 0 dispatches; follow() is for the other '
+                               'ranks')
+        device = self.pipeline.device
+        if device.type == 'cuda':
+            torch.cuda.set_device(device)
+        n = 0
+        with torch.inference_mode():
+            while True:
+                msg = C.broadcast_object(None, src=0)
+                if msg is None:
+                    return n
+                kind, reqs, seed = msg
+                try:
+                    self._run(kind, reqs, seed)
+                except Exception:  # noqa: BLE001 — rank 0 reports it
+                    pass
+                n += 1
+
+    def _announce(self, msg):
+        if self.mesh is not None:
+            C.broadcast_object(msg, src=0)
 
     def __enter__(self):
         return self
@@ -240,6 +324,7 @@ class GenerationEngine:
                 item = self._queue.get()
                 if item is None:
                     self._flush_all()
+                    self._announce(None)
                     return
                 group = self._collect_group(item)
                 if group:
@@ -277,15 +362,21 @@ class GenerationEngine:
             self._queue.put(item)
         return sig, group
 
+    def _run(self, kind, reqs, seed):
+        if kind == 'generate':
+            return self._run_generate(reqs, seed)
+        if kind == 'paint':
+            return self._run_paint(reqs, seed)
+        return self._run_reconstruct(reqs)
+
     def _run_group(self, sig, group):
         try:
             reqs = [r for r, _, _ in group]
-            if sig[0] == 'generate':
-                outs = self._run_generate(reqs)
-            elif sig[0] == 'paint':
-                outs = self._run_paint(reqs)
-            else:
-                outs = self._run_reconstruct(reqs)
+            seed = self._batch_seed(reqs)
+            if self.mesh is not None:
+                self._announce((sig[0], [_host_request(r) for r in reqs],
+                                seed))
+            outs = self._run(sig[0], reqs, seed)
             err = None
         except Exception as e:  # noqa: BLE001 — surfaced via futures
             outs, err = None, e
@@ -317,7 +408,14 @@ class GenerationEngine:
         return x
 
     def _count_padding(self, n):
+        """The batch's bucket: a power of two capped at ``max_batch``,
+        raised to a multiple of dp × microbatches under pipeline
+        parallelism."""
         bucket = _bucket(n, self.max_batch)
+        m = self._min_bucket
+        if bucket % m:
+            bucket = min((bucket + m - 1) // m * m, self.max_batch)
+        bucket = max(bucket, m)
         with self._lock:
             self._counters['padded_slots'] += bucket - n
         return bucket
@@ -328,7 +426,7 @@ class GenerationEngine:
         imgs = imgs[:n].float().cpu().numpy()
         return [imgs[i] for i in range(n)]
 
-    def _run_generate(self, reqs):
+    def _run_generate(self, reqs, seed):
         r0, n = reqs[0], len(reqs)
         bucket = self._count_padding(n)
         if r0.context is not None:
@@ -340,7 +438,7 @@ class GenerationEngine:
             temperature=self._batch_temps(reqs, bucket),
             guidance_scale=self._batch_guidance(reqs, bucket),
             cfg_warmup=r0.cfg_warmup, num_samples=num, decode_steps='final',
-            generator=self._batch_generator(reqs))[-1]
+            generator=self._generator(seed))[-1]
         return self._to_host(imgs, n)
 
     @staticmethod
@@ -361,7 +459,7 @@ class GenerationEngine:
         g[:len(reqs)] = [float(r.guidance_scale) for r in reqs]
         return g
 
-    def _run_paint(self, reqs):
+    def _run_paint(self, reqs, seed):
         r0, n = reqs[0], len(reqs)
         bucket = self._count_padding(n)
         pipe = self.pipeline
@@ -380,7 +478,7 @@ class GenerationEngine:
                          topk=r0.topk,
                          temperature=self._batch_temps(reqs, bucket),
                          guidance_scale=self._batch_guidance(reqs, bucket),
-                         generator=self._batch_generator(reqs))
+                         generator=self._generator(seed))
         return self._to_host(out, n)
 
     def _run_reconstruct(self, reqs):
@@ -388,13 +486,16 @@ class GenerationEngine:
         imgs = self._padded([r.image for r in reqs], self._count_padding(n))
         return self._to_host(self.pipeline.vqgan.reconstruct(imgs), n)
 
-    def _batch_generator(self, reqs):
-        """The batch's ``torch.Generator`` on the pipeline's device: the
-        seeded requests' seeds folded together (reproducible only for an
-        identical batch composition), else a fresh seed."""
+    def _batch_seed(self, reqs):
+        """The batch's seed: the seeded requests' seeds folded together
+        (reproducible only for an identical batch composition), else a
+        fresh one."""
         seeds = [r.seed for r in reqs if getattr(r, 'seed', None) is not None]
-        seed = (fold_seeds(seeds) if seeds
+        return (fold_seeds(seeds) if seeds
                 else int(self._seed_rng.integers(2 ** 63)))
+
+    def _generator(self, seed):
+        """The batch's ``torch.Generator`` on the pipeline's device."""
         return torch.Generator(device=self.pipeline.device).manual_seed(seed)
 
     def _flush_all(self):

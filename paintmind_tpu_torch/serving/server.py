@@ -231,12 +231,18 @@ def make_server(engine, host='127.0.0.1', port=8000, defaults=None):
 
 
 def serve(pipeline, host='127.0.0.1', port=8000, *, max_batch=16,
-          max_wait_ms=20.0, defaults=None, max_queue=None):
+          max_wait_ms=20.0, defaults=None, max_queue=None, **engine_kw):
     """Blocking entry point: wrap ``pipeline`` in an engine and serve.
-    ``max_queue`` bounds the request queue (full → HTTP 503)."""
+    ``max_queue`` bounds the request queue (full → HTTP 503);
+    ``engine_kw``: the engine's ``mesh``, ``sequence_parallel`` and
+    ``pp_microbatches``.  Under a mesh only rank 0 serves HTTP; the other
+    ranks follow its batches until it stops."""
     with GenerationEngine(pipeline, max_batch=max_batch,
                           max_wait_ms=max_wait_ms,
-                          max_queue=max_queue) as engine:
+                          max_queue=max_queue, **engine_kw) as engine:
+        if not engine.leader:
+            engine.follow()
+            return
         httpd = make_server(engine, host, port, defaults)
         print(f'serving on http://{host}:{httpd.server_address[1]} '
               f'(max_batch={max_batch}, max_wait={max_wait_ms}ms)')

@@ -30,17 +30,32 @@ forward and backward is a hand-written kernel (``ops/flash_attention``).
 
 On a CUDA device every attention's forward and backward is a hand-written
 kernel (``ops/flash_attention``), and every encode's code lookup is K2.
+
+Under a mesh (``mesh=``, ``parallel.mesh.make_mesh``) a step takes this
+data rank's rows of the global batch (``parallel.mesh.shard_batch``: of
+every microbatch, the rank's slice), and the per-row random draws (masking
+noise, dropout masks, the gradient penalty's mix) are the rank's rows of the
+global batch's draws from the generator every rank holds, so a data-parallel
+update equals the one-device update of the global batch.  After the
+microbatches the gradients are averaged over 'data' (``grad_sync``:
+``parallel.data_parallel.GradSync``, ZeRO-1 when it slices), the clipping
+norm is taken over the mesh, and the MoE routing and the discriminator's
+BatchNorm statistics are those of the global batch.  The metrics are the
+means over the global batch.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from ..models import discriminator as disc_mod
 from ..models import pipeline as pl
 from ..models import vqmodel as vm
-from ..models.pipeline import _not_ported
 from ..models.quantize import l2norm
+from ..nn.core import global_rows
+from ..parallel import collectives as C
 
 
 def _cast(x, dtype):
@@ -52,6 +67,86 @@ def _ema_update(ema, new, decay):
     """``decay·ema + (1 − decay)·new``, in place on the ``ema`` tensors."""
     for e, p in zip(ema, new):
         e.mul_(decay).add_(p.to(e.dtype), alpha=1.0 - decay)
+
+
+class _DataRanks:
+    """What a step needs of the mesh's 'data' axis (None: one device)."""
+
+    def __init__(self, mesh):
+        self.dp = 1 if mesh is None else mesh.size('data')
+        self.rank = 0 if mesh is None else mesh.rank('data')
+        self.group = None if mesh is None else mesh.group('data')
+        self.on = mesh is not None
+
+    def rows(self, micro):
+        """The global-batch draws of one microbatch of ``micro`` local rows."""
+        if not self.on:
+            return contextlib.nullcontext()
+        return global_rows(self.rank * micro, micro * self.dp)
+
+    def mean(self, metrics):
+        """Metrics (0-d or (E,) tensors) averaged over the data ranks."""
+        if self.dp == 1:
+            return metrics
+        keys = list(metrics)
+        flat = torch.cat([metrics[k].detach().float().reshape(-1)
+                          for k in keys])
+        C.all_reduce(flat, self.group).div_(self.dp)
+        out, at = {}, 0
+        for k in keys:
+            n = metrics[k].numel()
+            out[k] = flat[at:at + n].reshape(metrics[k].shape)
+            at += n
+        return out
+
+    @contextlib.contextmanager
+    def routing(self, module):
+        """Route the MoE layers of ``module`` on the global batch while the
+        step runs (the data group set on each ``MoESwiGLU``)."""
+        from ..nn.moe import MoESwiGLU
+        mods = ([m for m in module.modules() if isinstance(m, MoESwiGLU)]
+                if self.dp > 1 else [])
+        for m in mods:
+            m.route_group = self.group
+        try:
+            yield
+        finally:
+            for m in mods:
+                m.route_group = None
+
+
+def _zero_grads(optimizer, params, grad_sync):
+    """Clear the optimizer's gradients, and the parameters' where the
+    optimizer holds ZeRO slices of them instead."""
+    optimizer.zero_grad(set_to_none=True)
+    if grad_sync is not None:
+        for p in params:
+            p.grad = None
+
+
+def _update(optimizer, params, grad_accum, grad_sync):
+    """Mean gradients -> (data-parallel reduce) -> the update -> (ZeRO
+    gather)."""
+    _average_grads(params, grad_accum)
+    if grad_sync is not None:
+        grad_sync.reduce()
+    optimizer.step()
+    if grad_sync is not None:
+        grad_sync.gather()
+
+
+def _grad_sync(params, optimizer, mesh, grad_sync, pipe_sum=()):
+    """The step's ``GradSync``: the given one, or plain data parallelism
+    over ``params`` (the optimizer built over them) on ``mesh``."""
+    if mesh is None:
+        if grad_sync is not None:
+            raise ValueError('grad_sync needs mesh=')
+        return None
+    if grad_sync is None:
+        from ..parallel.data_parallel import GradSync
+        grad_sync = GradSync(params, mesh, pipe_sum=pipe_sum)
+    grad_sync.install(optimizer)
+    return grad_sync
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +222,8 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
                           d_weight=0.1, grad_accum=1, compute_dtype=None,
                           backend=None, vq_backend='auto', remat=False,
                           ema_decay=None, codebook_restart_every=None,
-                          share_forward=True, state=None, seed=0):
+                          share_forward=True, state=None, seed=0, mesh=None,
+                          g_sync=None, d_sync=None):
     """Returns ``step(imgs, eta=None, picks=None) -> metrics``, which
     updates ``vqgan``, the discriminator and the train state in place; the
     state (``init_vqgan_train_state``, built here unless given) is readable
@@ -151,7 +247,12 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
     l2-normalised encoder latents of the last microbatch, at the picked
     rows.  The metrics are 0-d tensors on the device: the means over the
     microbatches of 'rec loss', 'per loss', 'g loss', 'codebook loss',
-    'loss', 'd loss', and 'restarted codes' with a restart window."""
+    'loss', 'd loss', and 'restarted codes' with a restart window.
+
+    ``mesh``: data parallelism over its 'data' axis (``imgs`` this rank's
+    rows, ``parallel.mesh.shard_batch``; ``eta`` and ``picks`` global);
+    ``g_sync`` / ``d_sync``: the ``GradSync`` of each optimizer (ZeRO-1),
+    else plain data parallelism."""
     if state is None:
         state = init_vqgan_train_state(vqgan, g_tx, d_tx, dcfg, ema_decay,
                                        codebook_restart_every, seed)
@@ -166,6 +267,11 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
     d = state['d']
     d_params = list(d.parameters())
     kw = dict(backend=backend, remat=remat)
+    ranks = _DataRanks(mesh)
+    g_sync = _grad_sync(g_params, state['g_opt'], mesh, g_sync)
+    d_sync = _grad_sync(d_params, state['d_opt'], mesh, d_sync)
+    if ranks.dp > 1:
+        d.sync_group = ranks.group
 
     def forward_full(img):
         z, cb_loss, ids = vm.encode(vqgan, _cast(img, compute_dtype),
@@ -175,7 +281,7 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
     def d_phase(imgs, eta, recs):
         """One D update; ``recs[i]`` is microbatch i's reconstruction, or
         None to compute it here without a graph (two-pass form)."""
-        state['d_opt'].zero_grad(set_to_none=True)
+        _zero_grads(state['d_opt'], d_params, d_sync)
         loss_sum = 0.0
         for i in range(grad_accum):
             rec = recs[i]
@@ -185,8 +291,7 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
             loss = vqgan_d_loss(d, imgs[i], rec.detach(), eta[i])
             loss.backward()
             loss_sum = loss_sum + loss.detach()
-        _average_grads(d_params, grad_accum)
-        state['d_opt'].step()
+        _update(state['d_opt'], d_params, grad_accum, d_sync)
         return loss_sum
 
     def step(imgs, eta=None, picks=None):
@@ -197,10 +302,11 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
         micro = b // grad_accum
         imgs = imgs.float().reshape(grad_accum, micro, *imgs.shape[1:])
         if eta is None:
-            eta = torch.rand(b, 1, 1, 1, device=imgs.device,
+            eta = torch.rand(b * ranks.dp, 1, 1, 1, device=imgs.device,
                              generator=state['generator'])
-        eta = eta.to(imgs.device, torch.float32).reshape(grad_accum, micro, 1, 1, 1)
-        state['g_opt'].zero_grad(set_to_none=True)
+        eta = eta.to(imgs.device, torch.float32).reshape(
+            grad_accum, ranks.dp, micro, 1, 1, 1)[:, ranks.rank]
+        _zero_grads(state['g_opt'], g_params, g_sync)
 
         if share_forward:
             fwd = [forward_full(img) for img in imgs]
@@ -225,12 +331,12 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
                 all_ids.append(ids)
         finally:
             d.requires_grad_(True)
-        _average_grads(g_params, grad_accum)
-        state['g_opt'].step()
+        _update(state['g_opt'], g_params, grad_accum, g_sync)
         state['step'] += 1
 
         out = {k: v / grad_accum for k, v in sums.items()}
         out['d loss'] = d_loss_sum / grad_accum
+        out = ranks.mean(out)
         if codebook_restart_every is not None:
             out['restarted codes'] = _codebook_restart(
                 imgs[-1], torch.cat([i.reshape(-1) for i in all_ids]), picks)
@@ -241,7 +347,8 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
     @torch.no_grad()
     def _codebook_restart(img, ids, picks):
         usage = state['code_usage']
-        usage += torch.bincount(ids.long(), minlength=cfg.n_embed)
+        used = torch.bincount(ids.long(), minlength=cfg.n_embed)
+        usage += C.all_reduce(used, ranks.group) if ranks.dp > 1 else used
         if state['step'] % codebook_restart_every:
             return torch.zeros((), dtype=torch.int64, device=usage.device)
         # candidate rows: l2-normalised encoder latents of the last
@@ -249,6 +356,8 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
         # l2-normalised at every use, so this is scale-consistent)
         x = vqgan.encoder(_cast(img, compute_dtype), backend=backend)
         lat = l2norm(vqgan.prev_quant(x)).reshape(-1, cfg.embed_dim)
+        if ranks.dp > 1:  # the global microbatch's latents, in rank order
+            lat = C.all_gather(lat.contiguous(), ranks.group, 0)
         if picks is None:
             picks = torch.randint(0, lat.shape[0], (cfg.n_embed,),
                                   device=lat.device,
@@ -261,6 +370,7 @@ def make_vqgan_train_step(vqgan, g_tx, d_tx, *,
         return dead.sum()
 
     step.state = state
+    step.grad_sync = g_sync, d_sync
     return step
 
 
@@ -299,7 +409,8 @@ def init_pipeline_train_state(pipe, optimizer, ema_decay=None, seed=0):
 def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
                              compute_dtype=None, backend=None,
                              vq_backend='auto', remat=False, ema_decay=None,
-                             state=None, transformer_apply=None):
+                             state=None, transformer_apply=None, mesh=None,
+                             grad_sync=None):
     """Returns ``step(imgs, context, mask_ratio, noise=None) -> metrics``,
     which updates ``pipe`` and the train state in place.  The state is
     ``state`` (from ``init_pipeline_train_state``, e.g. to choose its seed)
@@ -313,9 +424,19 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
     ``metrics['loss']`` is the mean over the microbatches, a 0-d tensor on
     the device (reading it is the caller's synchronisation).  For the MoE
     versions the metrics also carry ``lb loss``, ``router z``, ``dropped``
-    and the (E,) ``expert load``, each the mean over the microbatches."""
-    if transformer_apply is not None:
-        raise _not_ported('a pipeline-parallel transformer_apply', 10)
+    and the (E,) ``expert load``, each the mean over the microbatches.
+
+    ``transformer_apply(transformer, x, context, backend=, generator=,
+    remat=)`` replaces the transformer's forward (the pipeline-parallel
+    apply, ``parallel.pipeline_parallel.transformer_apply_for``).  ``mesh``:
+    data parallelism over its 'data' axis (``imgs``, ``context`` and
+    ``noise`` this rank's rows, ``parallel.mesh.shard_batch``); ``grad_sync``
+    its ``GradSync`` (ZeRO-1), else plain data parallelism (with the
+    pre-pipeline gradients summed over the stages when
+    ``transformer_apply`` pipelines)."""
+    if transformer_apply is not None and mesh is None:
+        raise ValueError('transformer_apply (a pipelined transformer) needs '
+                         'mesh=')
     if state is None:
         state = init_pipeline_train_state(pipe, optimizer, ema_decay)
     if (ema_decay is None) != ('ema' not in state):
@@ -324,6 +445,14 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
     if state['opt'] is not optimizer:
         raise ValueError('state was initialised with another optimizer')
     params = pipe.trainable_parameters()
+    ranks = _DataRanks(mesh)
+    pipe_sum = ()
+    if transformer_apply is not None:
+        from ..parallel.pipeline_parallel import pp_input_params
+        pipe_sum = pp_input_params(pipe)
+    grad_sync = _grad_sync(params, optimizer, mesh, grad_sync, pipe_sum)
+    # a pipelined MoE routes per microbatch, as inside JAX's shard_map
+    routed = transformer_apply is None
 
     def step(imgs, context, mask_ratio, noise=None):
         b = imgs.shape[0]
@@ -331,32 +460,37 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
             raise ValueError(f'batch size {b} not divisible by '
                              f'grad_accum_steps={grad_accum}')
         pipe.train()
-        optimizer.zero_grad(set_to_none=True)
+        _zero_grads(optimizer, params, grad_sync)
         chunks = [imgs.chunk(grad_accum),
                   context.chunk(grad_accum) if context is not None
                   else [None] * grad_accum,
                   noise.chunk(grad_accum) if noise is not None
                   else [None] * grad_accum]
         loss_sum, aux_sum = 0.0, {}
-        for img, ctx, nz in zip(*chunks):
-            loss, aux = pl.pipeline_loss(
-                pipe, _cast(img, compute_dtype), _cast(ctx, compute_dtype),
-                mask_ratio, generator=state['generator'], noise=nz,
-                backend=backend, vq_backend=vq_backend, remat=remat,
-                return_aux=True)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-            aux_sum = {n: aux_sum.get(n, 0.0) + v for n, v in aux.items()}
+        with ranks.routing(pipe.transformer) if routed \
+                else contextlib.nullcontext():
+            for img, ctx, nz in zip(*chunks):
+                with ranks.rows(img.shape[0]):
+                    loss, aux = pl.pipeline_loss(
+                        pipe, _cast(img, compute_dtype),
+                        _cast(ctx, compute_dtype), mask_ratio,
+                        generator=state['generator'], noise=nz,
+                        backend=backend, vq_backend=vq_backend, remat=remat,
+                        return_aux=True, transformer_apply=transformer_apply)
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
+                aux_sum = {n: aux_sum.get(n, 0.0) + v for n, v in aux.items()}
         # a parameter the batch did not reach (context_proj when the text
         # was dropped) gets a zero gradient: its moments and its weight
         # decay still advance, as in optax
-        _average_grads(params, grad_accum)
-        optimizer.step()
+        _update(optimizer, params, grad_accum, grad_sync)
         state['step'] += 1
         if ema_decay is not None:
             _ema_update(state['ema'], params, ema_decay)
-        return {'loss': loss_sum / grad_accum,
-                **{n: v * (1.0 / grad_accum) for n, v in aux_sum.items()}}
+        return ranks.mean({'loss': loss_sum / grad_accum,
+                           **{n: v * (1.0 / grad_accum)
+                              for n, v in aux_sum.items()}})
 
     step.state = state
+    step.grad_sync = grad_sync
     return step

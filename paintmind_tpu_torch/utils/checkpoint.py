@@ -13,7 +13,8 @@ reference publishes its weights) are converted on load to the same flat
 tree (``convert/torch_weights``).  A trainer's state file
 (``<prefix>_state_<N>.pt``) is not a model checkpoint and is refused; it is
 read by the trainer's ``resume()``.  Orbax directories are not read by the
-port yet (ROADMAP).
+port (a multi-GPU run's state file is one ``torch.save`` of whole tensors,
+which any mesh resumes from).
 """
 
 from __future__ import annotations
@@ -86,8 +87,9 @@ def load_flat(path, model=None):
     if not path.endswith('.npz'):
         raise NotImplementedError(
             f'{path!r}: the port reads .npz archives and reference .pt / '
-            '.pth / .bin state dicts; orbax directories wait for a later '
-            'slice (ROADMAP)')
+            '.pth / .bin state dicts; it does not read orbax directories '
+            '(its multi-GPU state files are one torch.save of whole '
+            'tensors)')
     with np.load(path) as data:
         return dict(to_tensor(k, data[k]) for k in data.files)
 
@@ -109,4 +111,20 @@ def save_params(path, flat):
         raise NotImplementedError(
             f'{path!r}: the port writes .npz parameter archives only')
     np.savez(path, **flat)
+    return path
+
+
+def save_placed(module, path):
+    """``save_params(path, to_flat(module))`` for a module that may be
+    placed on a mesh: every rank gathers the whole tensors (a collective),
+    rank 0 writes, all wait.  Returns ``path``."""
+    from ..convert.from_jax import to_flat
+    from ..parallel.mesh import full_state_dict, placed
+    from ..parallel.multihost import barrier, is_main_process
+    sharded = placed(module)
+    flat = to_flat(module, full_state_dict(module) if sharded else None)
+    if is_main_process():
+        save_params(path, flat)
+    if sharded:
+        barrier()
     return path

@@ -68,7 +68,10 @@ def default_collate(items):
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
                  drop_last=True, num_workers=8, collate_fn=default_collate,
-                 prefetch=2):
+                 prefetch=2, rows=None):
+        """``rows``: the positions within each batch this process loads
+        (a data-parallel rank's rows of the global batch), or None (all)."""
+        self.rows = None if rows is None else np.asarray(rows)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -90,7 +93,8 @@ class DataLoader:
             idx = np.random.default_rng(self.seed + self.epoch).permutation(n)
         nb = len(self)
         for b in range(nb):
-            yield idx[b * self.batch_size:(b + 1) * self.batch_size]
+            batch = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            yield batch if self.rows is None else batch[self.rows]
 
     def __iter__(self):
         q = queue.Queue(maxsize=self.prefetch)

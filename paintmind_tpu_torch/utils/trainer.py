@@ -35,8 +35,18 @@ and metrics.
 (``utils.metrics.rfid``, InceptionV3 features on the trainer's device) to
 ``evaluate()``'s log, under ``val rfid-inception`` or ``val rfid-rand``.
 
-One process, one device.  The multi-GPU options are not ported yet (ROADMAP
-queue A, 10).
+Multi-GPU (``mesh=``, a ``parallel.mesh.make_mesh`` over the ranks of a
+``torchrun`` job): ``batch_size`` is the global batch, and each rank loads
+only its rows of it (of every microbatch, its data rank's slice).  The
+gradients are averaged over 'data'; ``zero_sharding`` slices the optimizer
+state over 'data' (ZeRO-1); a 'model' axis of more than one rank carves the
+model (tensor parallelism for the transformer stacks and the VQGAN, expert
+parallelism for an MoE transformer), or with ``pp_microbatches`` stages the
+stage-2 stack over it (GPipe).  Only rank 0 logs, writes image grids and
+writes checkpoints; every rank takes part in gathering what rank 0 writes
+and waits at a barrier after.  A state file holds whole tensors in the
+unplaced names and order, whatever the mesh, so a run saved under any
+(dp, tp, pp) resumes under any other, or in one process.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ import torch
 from .. import optim
 from ..models import discriminator as disc_mod
 from ..models import lpips as lpips_mod
-from ..models.pipeline import _not_ported
+from ..parallel import multihost
 from ..train import steps as train_steps
 from .data import DataLoader, random_split
 from .image_grid import save_image_grid
@@ -98,11 +108,93 @@ def _host(imgs):
     return np.asarray(imgs, np.float32)
 
 
+class _NoWriter:
+    """The metric writer of a rank other than 0."""
+
+    def log(self, metrics, step):
+        pass
+
+    def close(self):
+        pass
+
+
 class _TrainerBase:
     _ckpt_prefix = 'state'
     _preempted = False
     keep_last = None  # retention policy: None = keep every checkpoint
     _raw = None  # the raw weights while the model holds their averages
+    mesh = None
+    _rows = None  # this rank's rows of each global batch (None: all)
+
+    @property
+    def is_main(self):
+        return self.mesh is None or multihost.is_main_process()
+
+    def _barrier(self):
+        if self.mesh is not None:
+            multihost.barrier()
+
+    def _setup_mesh(self, mesh, batch_size, grad_accum, options):
+        """Checks of the multi-GPU options; the per-rank rows of a global
+        batch."""
+        if mesh is None:
+            for name, value in options.items():
+                if value:
+                    raise ValueError(f'{name} needs mesh= (a '
+                                     'parallel.mesh.make_mesh over the ranks)')
+            return
+        from ..parallel.mesh import check_mesh
+        check_mesh(mesh, type(self).__name__)
+        dp = mesh.size('data')
+        if batch_size % dp:
+            raise ValueError(f'batch_size {batch_size} must be divisible by '
+                             f'dp={dp}')
+        self.mesh = mesh
+        m = batch_size // dp
+        r = mesh.rank('data')
+        self._rows = [i * batch_size + r * m + j for i in range(grad_accum)
+                      for j in range(m)]
+
+    def _local_batch(self, batch):
+        """This rank's rows of a batch from an external loader (one this
+        trainer built loads only them)."""
+        if self.mesh is None or self._own_loader:
+            return batch
+        from ..parallel.mesh import shard_batch
+        return shard_batch(batch, self.mesh, self.grad_accum)
+
+    _own_loader = False
+
+    def _metric_writer(self, name):
+        return MetricWriter(self.log_dir, name) if self.is_main else _NoWriter()
+
+    def _full_model_state(self, module):
+        """The raw weights' state dict, whole (gathered over the mesh)."""
+        from ..parallel.mesh import full_state_dict
+        if self._raw is None:
+            return full_state_dict(module)
+        params, _ = self._ema_pairs()
+        held = [p.detach().clone() for p in params]
+        with torch.no_grad():
+            for p, r in zip(params, self._raw):
+                p.copy_(r)
+            try:
+                return full_state_dict(module)
+            finally:
+                for p, h in zip(params, held):
+                    p.copy_(h)
+
+    def _gather_list(self, module, tensors, names):
+        """Tensors shaped like ``names``' parameters -> whole, in
+        ``self._full_names`` order."""
+        from ..parallel.data_parallel import gather_named
+        full = gather_named(module, dict(zip(names, tensors)))
+        return [full[n] for n in self._full_names]
+
+    def _carve_list(self, module, tensors, names):
+        from ..parallel.mesh import carve_like
+        index = {n: i for i, n in enumerate(self._full_names)}
+        return [carve_like(module, n, tensors[index[n]]) for n in names]
 
     # subclasses with EMA: (the model's trained parameters, their averages)
     def _ema_pairs(self):
@@ -157,11 +249,15 @@ class _TrainerBase:
 
     def _save_state(self, name):
         """One ``torch.save`` file, written under a temporary name and then
-        renamed: a file that is there is a complete generation."""
+        renamed: a file that is there is a complete generation.  Under a
+        mesh every rank gathers, rank 0 writes, all wait."""
         path = os.path.abspath(os.path.join(self.model_saved_dir, name))
-        tmp = f'{path}.tmp-{os.getpid()}'
-        torch.save(self._state_dict(), tmp)
-        os.replace(tmp, path)
+        state = self._state_dict()
+        if self.is_main:
+            tmp = f'{path}.tmp-{os.getpid()}'
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        self._barrier()
         return path
 
     def _restore_state(self, path):
@@ -175,7 +271,7 @@ class _TrainerBase:
         """Retention: keep only the newest ``keep_last`` checkpoint
         generations (a generation is ``<prefix>_state_<N>.pt`` plus the
         ``<prefix>_step_<N>.npz`` model export)."""
-        if not self.keep_last:
+        if not self.keep_last or not self.is_main:
             return
         pat = re.compile(re.escape(prefix)
                          + r'_(state|step)_(\d+)\.(pt|npz)$')
@@ -267,10 +363,14 @@ class VQGANTrainer(_TrainerBase):
                  codebook_restart_every=None, train_loader=None,
                  valid_loader=None, share_forward=True, keep_last=None):
         del pin_memory
-        for name, value in (('mesh', mesh), ('zero_sharding', zero_sharding)):
-            if value:
-                raise _not_ported(f'VQGANTrainer({name}=...): multi-GPU '
-                                  'training', 10)
+        self.grad_accum = grad_accum_steps
+        self._setup_mesh(mesh, batch_size, grad_accum_steps,
+                         {'zero_sharding': zero_sharding})
+        if mesh is not None and mesh.size('model') > 1:
+            from ..parallel.mesh import shard_params
+            shard_params(vqvae, mesh)
+        self._full_names = [n for n, _ in vqvae.named_parameters()]
+        self._syncs = {}
         self.eval_rfid = eval_rfid
         self.vqvae = vqvae
         self.device = vqvae.device
@@ -300,7 +400,9 @@ class VQGANTrainer(_TrainerBase):
             self.train_dl = DataLoader(self.train_ds,
                                        batch_size * grad_accum_steps,
                                        shuffle=True, seed=seed,
-                                       num_workers=num_workers)
+                                       num_workers=num_workers,
+                                       rows=self._rows)
+            self._own_loader = True
             self.valid_dl = DataLoader(self.valid_ds,
                                        min(batch_size, valid_size),
                                        shuffle=False, num_workers=num_workers)
@@ -314,10 +416,19 @@ class VQGANTrainer(_TrainerBase):
             num_epoch, iters, lr, lr_min, warmup_steps, warmup_lr_init,
             decay_steps)
 
-        def tx(sched):
+        def tx(sched, which):
             rate = _micro_schedule(sched, grad_accum_steps)
-            return lambda params: optim.adam(params, rate, (0.9, 0.99),
-                                             max_grad_norm)
+
+            def build(params):
+                if mesh is None:
+                    return optim.adam(params, rate, (0.9, 0.99),
+                                      max_grad_norm)
+                from ..parallel.data_parallel import GradSync
+                sync = self._syncs[which] = GradSync(params, mesh,
+                                                     zero=zero_sharding)
+                return sync.install(optim.adam(sync.opt_params, rate,
+                                               (0.9, 0.99), max_grad_norm))
+            return build
 
         self.lpips = self._load_perceptual(perceptual_weights)
         # reference config: NLayerDiscriminator(3, 64, 3) (trainer.py:94)
@@ -325,7 +436,7 @@ class VQGANTrainer(_TrainerBase):
             input_nc=3, ndf=64, n_layers=3)
         self.ema_decay = ema_decay
         self.state = train_steps.init_vqgan_train_state(
-            vqvae, tx(self.g_sched), tx(self.d_sched), self.dcfg,
+            vqvae, tx(self.g_sched, 'g'), tx(self.d_sched, 'd'), self.dcfg,
             ema_decay=ema_decay,
             codebook_restart_every=codebook_restart_every, seed=seed)
         self._step = train_steps.make_vqgan_train_step(
@@ -334,7 +445,8 @@ class VQGANTrainer(_TrainerBase):
             compute_dtype=_dtype_of(mixed_precision), remat=remat,
             ema_decay=ema_decay,
             codebook_restart_every=codebook_restart_every,
-            share_forward=share_forward, state=self.state)
+            share_forward=share_forward, state=self.state, mesh=mesh,
+            g_sync=self._syncs.get('g'), d_sync=self._syncs.get('d'))
         self.steps = 0
         self.log = Log()  # train() starts a fresh one
 
@@ -380,17 +492,32 @@ class VQGANTrainer(_TrainerBase):
         return list(self.vqvae.parameters()), self.state['g_ema']
 
     def _state_dict(self):
-        state = {
-            'model': self._raw_state_dict(self.vqvae),
-            'g_opt': self.state['g_opt'].state_dict(),
-            'd': self.state['d'].state_dict(),
-            'd_opt': self.state['d_opt'].state_dict(),
-            'step': self.state['step'],
-            'generator': self.state['generator'].get_state(),
-        }
+        if self.mesh is None:
+            state = {
+                'model': self._raw_state_dict(self.vqvae),
+                'g_opt': self.state['g_opt'].state_dict(),
+                'd': self.state['d'].state_dict(),
+                'd_opt': self.state['d_opt'].state_dict(),
+            }
+        else:  # whole tensors, the unplaced layout
+            names, d = self._full_names, self.state['d']
+            d_names = [n for n, _ in d.named_parameters()]
+            state = {
+                'model': self._full_model_state(self.vqvae),
+                'g_opt': self._syncs['g'].full_state(
+                    self.state['g_opt'], self.vqvae, names, names),
+                'd': {k: v.cpu() for k, v in d.state_dict().items()},
+                'd_opt': self._syncs['d'].full_state(
+                    self.state['d_opt'], d, d_names, d_names),
+            }
+        state['step'] = self.state['step']
+        state['generator'] = self.state['generator'].get_state()
         for key in ('g_ema', 'code_usage'):
             if key in self.state:
                 state[key] = self.state[key]
+        if self.mesh is not None and 'g_ema' in self.state:
+            state['g_ema'] = self._gather_list(
+                self.vqvae, self.state['g_ema'], self._full_names)
         return state
 
     @torch.no_grad()
@@ -399,13 +526,31 @@ class VQGANTrainer(_TrainerBase):
             if (key in state) != (key in self.state):
                 raise ValueError(f'the checkpoint and this trainer disagree '
                                  f'on {key}')
-        self.vqvae.load_state_dict(state['model'])
-        self.state['g_opt'].load_state_dict(state['g_opt'])
-        self.state['d'].load_state_dict(state['d'])
-        self.state['d_opt'].load_state_dict(state['d_opt'])
+        d = self.state['d']
+        if self.mesh is None:
+            self.vqvae.load_state_dict(state['model'])
+            self.state['g_opt'].load_state_dict(state['g_opt'])
+            d.load_state_dict(state['d'])
+            self.state['d_opt'].load_state_dict(state['d_opt'])
+            ema = state.get('g_ema', ())
+        else:
+            from ..parallel.mesh import local_state_dict
+            names = self._full_names
+            d_names = [n for n, _ in d.named_parameters()]
+            self.vqvae.load_state_dict(local_state_dict(self.vqvae,
+                                                        state['model']))
+            d.load_state_dict(state['d'])
+            for key, module, ns in (('g', self.vqvae, names),
+                                    ('d', d, d_names)):
+                sync = self._syncs[key]
+                sync.load_full_state(self.state[f'{key}_opt'],
+                                     state[f'{key}_opt'], module, ns, ns)
+                sync.refresh()
+            ema = (self._carve_list(self.vqvae, state['g_ema'], names)
+                   if 'g_ema' in state else ())
         self.state['step'] = state['step']
         self.state['generator'].set_state(state['generator'])
-        for e, saved in zip(self.state.get('g_ema', ()), state.get('g_ema', ())):
+        for e, saved in zip(self.state.get('g_ema', ()), ema):
             e.copy_(saved)
         if 'code_usage' in state:
             self.state['code_usage'].copy_(state['code_usage'])
@@ -417,15 +562,15 @@ class VQGANTrainer(_TrainerBase):
         images, or (images, ...)); returns the step's metrics, 0-d tensors
         on the device."""
         self._unsync_model()
-        imgs = torch.as_tensor(_first_images(batch), dtype=torch.float32,
-                               device=self.device)
+        imgs = torch.as_tensor(_first_images(self._local_batch(batch)),
+                               dtype=torch.float32, device=self.device)
         metrics = self._step(imgs)
         self.steps += self.grad_accum
         return metrics
 
     def train(self):
         self.log = Log()
-        writer = self._writer = MetricWriter(self.log_dir, 'vqgan')
+        writer = self._writer = self._metric_writer('vqgan')
         restore_sig = self._install_preemption_handler()
         try:
             self._train_loop(writer)
@@ -503,8 +648,9 @@ class VQGANTrainer(_TrainerBase):
                 reals.append(imgs)
                 recs.append(rec)
             pairs = np.stack([imgs, rec], axis=1).reshape(-1, *imgs.shape[1:])
-            save_image_grid(pairs, os.path.join(
-                self.image_saved_dir, f'step_{self.steps}_{i}.png'))
+            if self.is_main:
+                save_image_grid(pairs, os.path.join(
+                    self.image_saved_dir, f'step_{self.steps}_{i}.png'))
         if all_ids:  # reconstruction quality and codebook health
             stats = codebook_stats(np.concatenate(all_ids),
                                    self.vqvae.config.n_embed)
@@ -546,11 +692,15 @@ class PaintMindTrainer(_TrainerBase):
         # reference kwarg is `optim`; shadowed by the optim module import
         optim_name = optim_name or kwargs.pop('optim', 'lion')
         del pin_memory
-        for name, value in (('mesh', mesh), ('zero_sharding', zero_sharding),
-                            ('pp_microbatches', pp_microbatches)):
-            if value:
-                raise _not_ported(f'PaintMindTrainer({name}=...): multi-GPU '
-                                  'training', 10)
+        self.grad_accum = grad_accum_steps
+        self._setup_mesh(mesh, batch_size, grad_accum_steps,
+                         {'zero_sharding': zero_sharding,
+                          'pp_microbatches': pp_microbatches})
+        # the trainable tensors' names, in trainable_parameters() order
+        self._full_names = ['mask_token'] + [
+            'transformer.' + n for n, _ in model.transformer.named_parameters()]
+        transformer_apply = self._place(model, mesh, batch_size,
+                                        pp_microbatches)
         self.model = model
         self.device = model.device
         self.num_epoch = num_epoch
@@ -585,7 +735,9 @@ class PaintMindTrainer(_TrainerBase):
             self.train_dl = DataLoader(self.train_ds,
                                        batch_size * grad_accum_steps,
                                        shuffle=True, seed=seed,
-                                       num_workers=num_workers)
+                                       num_workers=num_workers,
+                                       rows=self._rows)
+            self._own_loader = True
             self.valid_dl = DataLoader(self.valid_ds, 6, shuffle=False,
                                        num_workers=num_workers)
 
@@ -596,12 +748,22 @@ class PaintMindTrainer(_TrainerBase):
             decay_steps)
         tx_sched = _micro_schedule(self.scheduler, grad_accum_steps)
         params = model.trainable_parameters()  # the VQGAN is frozen
+        self._sync = None
+        opt_params = params
+        if mesh is not None:
+            from ..parallel.data_parallel import GradSync
+            from ..parallel.pipeline_parallel import pp_input_params
+            train_steps._fp32_trainable(params, 'Pipeline')
+            self._sync = GradSync(
+                params, mesh, zero=zero_sharding,
+                pipe_sum=pp_input_params(model) if pp_microbatches else ())
+            opt_params = self._sync.opt_params
         if optim_name == 'lion':
-            opt = optim.lion(params, tx_sched, (0.9, 0.99),
+            opt = optim.lion(opt_params, tx_sched, (0.9, 0.99),
                              weight_decay=weight_decay,
                              max_grad_norm=max_grad_norm)
         elif optim_name == 'adamw':
-            opt = optim.adamw(params, tx_sched, (0.9, 0.96),
+            opt = optim.adamw(opt_params, tx_sched, (0.9, 0.96),
                               weight_decay=weight_decay,
                               max_grad_norm=max_grad_norm)
         else:
@@ -613,7 +775,9 @@ class PaintMindTrainer(_TrainerBase):
         self._step = train_steps.make_pipeline_train_step(
             model, opt, grad_accum=grad_accum_steps,
             compute_dtype=_dtype_of(mixed_precision), remat=remat,
-            ema_decay=ema_decay, state=self.state)
+            ema_decay=ema_decay, state=self.state,
+            transformer_apply=transformer_apply, mesh=mesh,
+            grad_sync=self._sync)
         # the host-side draws (CFG text dropout, mask ratio) have their own
         # generators so that a resumed run repeats them
         self._py_rng = pyrandom.Random(seed)
@@ -623,9 +787,43 @@ class PaintMindTrainer(_TrainerBase):
         n_train = sum(p.numel() for p in params)
         print(f'number of learnable parameters: {n_train // int(1e6)}M')
 
+    @staticmethod
+    def _place(model, mesh, batch_size, pp_microbatches):
+        """Place ``model`` on ``mesh`` (the JAX package's checks first);
+        returns the pipelined transformer apply, or None."""
+        if mesh is None:
+            return None
+        from ..parallel import pipeline_parallel as ppar
+        from ..parallel.mesh import shard_params
+        stages, dp = mesh.size('model'), mesh.size('data')
+        if pp_microbatches:
+            if stages < 2:
+                raise ValueError(
+                    f"mesh 'model' axis is {stages} — pipeline parallelism "
+                    'needs >= 2 stages (make_mesh(model_parallel=N))')
+            if model.config.depth % stages:
+                raise ValueError(f'depth {model.config.depth} must be '
+                                 f'divisible by {stages} pipeline stages')
+            if batch_size % (dp * pp_microbatches):
+                raise ValueError(
+                    f'batch_size {batch_size} must be divisible by '
+                    f'dp={dp} × pp_microbatches={pp_microbatches}')
+            ppar.shard_for_pp(model.transformer, mesh, pp_microbatches)
+            return ppar.transformer_apply_for(model.transformer, mesh,
+                                              pp_microbatches)
+        if stages > 1:
+            shard_params(model, mesh)
+        return None
+
+    def _local_names(self):
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        return [names[id(p)] for p in self.model.trainable_parameters()]
+
     # -- state for save / resume ----------------------------------------
 
     def _state_dict(self):
+        if self.mesh is not None:
+            return self._mesh_state_dict()
         state = {
             'model': self._raw_state_dict(self.model),
             'opt': self.state['opt'].state_dict(),
@@ -644,15 +842,45 @@ class PaintMindTrainer(_TrainerBase):
         if ('ema' in state) != ('ema' in self.state):
             raise ValueError('the checkpoint and this trainer disagree on '
                              'ema_decay')
-        self.model.load_state_dict(state['model'])
-        self.state['opt'].load_state_dict(state['opt'])
+        ema = state.get('ema', ())
+        if self.mesh is None:
+            self.model.load_state_dict(state['model'])
+            self.state['opt'].load_state_dict(state['opt'])
+        else:
+            from ..parallel.mesh import local_state_dict
+            names = self._local_names()
+            self.model.load_state_dict(local_state_dict(self.model,
+                                                        state['model']))
+            self._sync.load_full_state(self.state['opt'], state['opt'],
+                                       self.model, names, self._full_names)
+            self._sync.refresh()
+            if ema:
+                ema = self._carve_list(self.model, ema, names)
         self.state['step'] = state['step']
         self.state['generator'].set_state(state['generator'])
         self.model._generator.set_state(state['sample_generator'])
         self._py_rng.setstate(state['py_rng'])
         self._np_rng.bit_generator.state = state['np_rng']
-        for e, saved in zip(self.state.get('ema', ()), state.get('ema', ())):
+        for e, saved in zip(self.state.get('ema', ()), ema):
             e.copy_(saved)
+
+    def _mesh_state_dict(self):
+        """The unplaced trainer's state, gathered whole over the mesh."""
+        names = self._local_names()
+        state = {
+            'model': self._full_model_state(self.model),
+            'opt': self._sync.full_state(self.state['opt'], self.model, names,
+                                         self._full_names),
+            'step': self.state['step'],
+            'generator': self.state['generator'].get_state(),
+            'sample_generator': self.model._generator.get_state(),
+            'py_rng': self._py_rng.getstate(),
+            'np_rng': self._np_rng.bit_generator.state,
+        }
+        if 'ema' in self.state:
+            state['ema'] = self._gather_list(self.model, self.state['ema'],
+                                             names)
+        return state
 
     def _ema_pairs(self):
         if 'ema' not in self.state:
@@ -678,6 +906,7 @@ class PaintMindTrainer(_TrainerBase):
         batch_size · grad_accum_steps of them); returns the step's metrics
         with ``loss`` still on the device."""
         self._unsync_model()
+        batch = self._local_batch(batch)
         imgs, text = batch if isinstance(batch, (tuple, list)) else (batch, None)
         if self._py_rng.random() < self.cfg_p:  # CFG dropout (ref :387-388)
             text = None
@@ -690,7 +919,7 @@ class PaintMindTrainer(_TrainerBase):
 
     def train(self):
         self.log = Log()
-        writer = self._writer = MetricWriter(self.log_dir, 'paintmind')
+        writer = self._writer = self._metric_writer('paintmind')
         restore_sig = self._install_preemption_handler()
         try:
             self._train_loop(writer)
@@ -765,5 +994,6 @@ class PaintMindTrainer(_TrainerBase):
                                        num_samples=len(imgs))
             all_imgs = np.concatenate([_host(imgs)]
                                       + [_host(g) for g in gens], axis=0)
-            save_image_grid(all_imgs, os.path.join(
-                self.image_saved_dir, f'step_{self.steps}_{i}.png'))
+            if self.is_main:
+                save_image_grid(all_imgs, os.path.join(
+                    self.image_saved_dir, f'step_{self.steps}_{i}.png'))

@@ -291,8 +291,15 @@ def test_pipeline_object_api(tpipe):
 
 
 def test_not_ported_branches_raise(tpipe):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # every branch is ported: the multi-GPU placements refuse, as the JAX
+    # package's do, a call without a mesh (the working paths are held in
+    # tests/test_torch_parallel.py and test_torch_pipeline_parallel.py)
+    with pytest.raises(ValueError, match='needs a mesh'):
         tpipe.enable_pipeline_parallel()
+    with pytest.raises(ValueError, match='needs a mesh'):
+        tpipe.shard()
+    with pytest.raises(TypeError, match='parallel.mesh.Mesh'):
+        tpipe.shard(object())
     # int8 is ported: a quantized copy (the fixture stays floating point)
     q = tpl.Pipeline(T_PIPE, stage1_pretrained=False, text_encoder=None,
                      device='cpu')

@@ -677,13 +677,25 @@ def test_engine_serves_moe_pipeline():
 
 
 def test_engine_refuses_sharded_pipeline(pipe):
-    for kw in ({'mesh': object()}, {'sequence_parallel': True}):
-        with pytest.raises(NotImplementedError, match='queue A item 10'):
-            GenerationEngine(pipe, max_batch=4, **kw)
+    """A sharded engine needs a mesh (the two-rank engine is held in
+    tests/test_torch_multiprocess.py): another object, or
+    ``sequence_parallel`` without a mesh, is refused before the pipeline
+    changes."""
+    with pytest.raises(TypeError, match='parallel.mesh.Mesh'):
+        GenerationEngine(pipe, max_batch=4, mesh=object())
+    with pytest.raises(ValueError, match='need mesh='):
+        GenerationEngine(pipe, max_batch=4, sequence_parallel=True)
+    assert pipe.mesh is None and pipe.transformer.tp is None
 
 
 def test_engine_refuses_pipeline_parallel_pipeline(pipe):
-    with pytest.raises(NotImplementedError, match='queue A item 10'):
+    """The JAX engine's guards (``engine.py:119-140``): pp_microbatches
+    without a mesh, and the pipeline's own refusals."""
+    with pytest.raises(ValueError, match='need mesh='):
+        GenerationEngine(pipe, max_batch=4, pp_microbatches=2)
+    with pytest.raises(TypeError, match='parallel.mesh.Mesh'):
         GenerationEngine(pipe, max_batch=4, mesh=object(), pp_microbatches=2)
-    with pytest.raises(NotImplementedError, match='queue A item 10'):
+    with pytest.raises(TypeError, match='parallel.mesh.Mesh'):
         pipe.enable_pipeline_parallel(object(), 2)
+    with pytest.raises(ValueError, match='needs a mesh'):
+        pipe.enable_pipeline_parallel(None, 2)

@@ -514,7 +514,9 @@ def test_step_rejects_indivisible_batch_and_unported_options(jparams):
     with pytest.raises(ValueError, match='batch size 3 not divisible by '
                                          'grad_accum_steps=2'):
         step(torch.from_numpy(_images(0, 3)), None, 0.5)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # a pipelined transformer_apply runs over a mesh (the working path is
+    # held in tests/test_torch_pipeline_parallel.py)
+    with pytest.raises(ValueError, match='needs mesh='):
         tsteps.make_pipeline_train_step(pipe, opt,
                                         transformer_apply=lambda *a: None)
     with pytest.raises(ValueError, match='ema_decay'):
@@ -682,10 +684,16 @@ def test_trainer_preemption_saves_and_resumes(tmp_path, jparams):
     assert second.steps == 2 + 3 * 5 and not second._preempted
 
 
-@pytest.mark.parametrize('kwarg', [{'mesh': object()}, {'zero_sharding': True},
-                                   {'pp_microbatches': 2}])
-def test_trainer_multi_gpu_options_raise(tmp_path, jparams, kwarg):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, queue A item 10'):
+@pytest.mark.parametrize('kwarg,error,match', [
+    ({'mesh': object()}, TypeError, 'parallel.mesh.Mesh'),
+    ({'zero_sharding': True}, ValueError, 'zero_sharding needs mesh='),
+    ({'pp_microbatches': 2}, ValueError, 'pp_microbatches needs mesh=')])
+def test_trainer_multi_gpu_options_raise(tmp_path, jparams, kwarg, error,
+                                         match):
+    """The multi-GPU options are ported (tests/test_torch_multiprocess.py,
+    test_torch_pipeline_parallel.py); without a mesh (or with another
+    object) they are refused."""
+    with pytest.raises(error, match=match):
         _make_trainer(tmp_path, make_pipe(jparams), **kwarg)
 
 

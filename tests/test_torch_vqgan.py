@@ -630,10 +630,15 @@ def test_lpips_auto_fails_loudly_without_weights(tmp_path, jvq):
     assert _vq_trainer(tmp_path, make_vq(jvq)).lpips is None
 
 
-@pytest.mark.parametrize('kwarg,item', [({'mesh': object()}, 10),
-                                        ({'zero_sharding': True}, 10)])
-def test_vqgan_trainer_unported_options_raise(tmp_path, jvq, kwarg, item):
-    with pytest.raises(NotImplementedError, match=f'queue A item {item}'):
+@pytest.mark.parametrize('kwarg,error,match', [
+    ({'mesh': object()}, TypeError, 'parallel.mesh.Mesh'),
+    ({'zero_sharding': True}, ValueError, 'zero_sharding needs mesh=')])
+def test_vqgan_trainer_unported_options_raise(tmp_path, jvq, kwarg, error,
+                                              match):
+    """The multi-GPU options are ported (the sync-BN step is held in
+    tests/test_torch_parallel.py); without a mesh, or with another object,
+    they are refused."""
+    with pytest.raises(error, match=match):
         _vq_trainer(tmp_path, make_vq(jvq), **kwarg)
 
 
