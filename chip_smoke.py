@@ -19,8 +19,8 @@ exits non-zero with no result line:
   3. holds each kernel against its plain PyTorch version at the main
      path's shapes, and times kernel, plain version and (where one exists)
      the PyTorch library call, beside the least time the card could take;
-     K1 and K4 also at head dims 128 and 32, K1 at N = M = 4096 (the 512²
-     variant), K2 at code dims 8, 16, 12, 48 and 100;
+     K1 and K4 also at head dims 128 and 32 and at N = M = 4096 (the 512²
+     variant; K4 in bf16 only), K2 at code dims 8, 16, 12, 48 and 100;
   4. stage 1: the shipped vit-s-vqgan weights reconstruct 8 seeded 256²
      images through the kernels and through the plain versions; then a
      registered model of head dim 16 and code dim 8 runs ``generate``,
@@ -90,7 +90,10 @@ exits non-zero with no result line:
      ``mesh=None`` over two updates, its ``save()`` resumed without a mesh;
      ``pp_stack_apply`` at one stage against the plain stack (fp32);
      ``VQGANTrainer(mesh=)`` bit-equal to ``mesh=None``; the collective
-     counters;
+     counters (every one over the one rank elided: not issued); one NCCL
+     all-reduce of 16 MB issued directly, checked and timed; and
+     ``shard(mesh).quantize('w8a8')`` generating bit-equal to
+     ``quantize('w8a8')``;
   8. ``utils.profiling.trace`` windows (device activity only, each inside
      an ``annotate`` range) over one unguided ``generate`` of paintmindv1
      and of paintmindv1-moe, one stage-2 training
@@ -250,9 +253,9 @@ ATTN_CASES = (('stage-2 self', 8, 1024, 1024, 16, 64, True),
               ('ragged', 2, 200, 77, 3, 64, False),
               ('ragged', 2, 200, 77, 3, 128, False),
               ('ragged', 2, 200, 77, 3, 32, False))
-# K1 only: the 512² variant's self-attention (4096 tokens), which the 512²
-# phase runs; K4 at 4096 tokens (512² training) is not on a path yet
-K1_ONLY_CASES = (('512² self', 2, 4096, 4096, 16, 64, True),)
+# the 512² variant's self-attention (4096 tokens): K1 as the 512² phase
+# runs it, K4 as 512² training would (bf16 only)
+LONG_CASES = (('512² self', 2, 4096, 4096, 16, 64, True),)
 
 
 def check_k1(g):
@@ -273,7 +276,7 @@ def check_k1(g):
     result line carries the main path's most frequent call, stage-2
     self-attention in bf16."""
     entry = None
-    for label, b, n, m, h, d, timed in ATTN_CASES + K1_ONLY_CASES:
+    for label, b, n, m, h, d, timed in ATTN_CASES + LONG_CASES:
         scale = d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(b, n, h, d, device='cuda', generator=g).to(dtype)
@@ -341,16 +344,20 @@ def check_k4(g):
     shares the kernel's lse: <= 1e-4 (measured 4e-6).
     ``torch.autograd.grad`` through ``flash_attention`` must give the bits
     of a direct K4 call, and a second direct call the same bits again.
-    Times the training shapes in bf16 (``ATTN_CASES``: stage-2 and VQGAN at
-    head dim 64, VQGAN at 128 and 32; the ragged cases and fp32, the gates'
-    reference path, checked only); the result line
+    The same bf16 gates and timing at N = M = 4096 (B = 2, H = 16: 512²
+    training; the plain version then holds B·H·4096² fp32 scores, 2 GiB,
+    several times over).  Times the training shapes in bf16 (``ATTN_CASES``:
+    stage-2 and VQGAN at head dim 64, VQGAN at 128 and 32; the ragged cases
+    and fp32, the gates' reference path, checked only); the result line
     carries the stage-2 path's most frequent call, stage-2 self-attention in
     bf16, beside the backward of ``F.scaled_dot_product_attention`` on a
     retained graph."""
     entry = None
-    for label, b, n, m, h, d, timed in ATTN_CASES:
+    for label, b, n, m, h, d, timed in ATTN_CASES + LONG_CASES:
         scale = d ** -0.5
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = ((torch.bfloat16,) if label == LONG_CASES[0][0]
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
             q, k, v, go = (torch.randn(b, rows, h, d, device='cuda',
                                        generator=g).to(dtype)
                            for rows in (n, m, m, n))
@@ -2040,14 +2047,21 @@ def tensors_equal(a, b):
 
 def multigpu_phase(totals, dense):
     """The multi-GPU layer (``paintmind_tpu_torch.parallel``) at world size
-    1, where every collective over the one rank is the identity, so each
-    placed run must give the unplaced one's bits.  ``multihost.initialize``
-    on a free local port and ``make_mesh()``: (data 1, model 1) over NCCL.
-    ``dense`` (the stage-2 phase's bf16 paintmindv1) is the reference:
-    ``shard(mesh)`` of a copy generates B = 8 for 16 steps bit-equal to it;
-    so does ``shard(mesh, sequence_parallel=True)``, and a
+    1, where every collective over the one rank is the identity and is not
+    issued (``collectives.elided``), so each placed run must give the
+    unplaced one's bits.  ``multihost.initialize`` on a free local port and
+    ``make_mesh()``: (data 1, model 1) over NCCL.  ``dense`` (the stage-2
+    phase's bf16 paintmindv1) is the reference: ``shard(mesh)`` of a copy
+    generates B = 8 for 16 steps bit-equal to it, every collective of it
+    elided; so does ``shard(mesh, sequence_parallel=True)``, and a
     ``GenerationEngine`` over that copy (``mesh=``) answers three seeded
     requests with ``generate``'s images of the padded batch, bit for bit.
+    One NCCL all-reduce of 16 MB over the one rank, issued through
+    ``torch.distributed`` directly, leaves its tensor unchanged and is
+    timed.  ``copy().shard(mesh).quantize('w8a8')`` generates bit-equal to
+    ``copy().quantize('w8a8')``.  ``disable_pipeline_parallel`` needs two
+    stages, which one card cannot hold: the gloo ranks of
+    ``tests/test_torch_pipeline_parallel.py`` hold it on the CPU.
     Then, at paintmindv1's width cut to depth 2 (fp32 masters, bf16
     compute): ``PaintMindTrainer(mesh=mesh, zero_sharding=True)`` and a
     ``mesh=None`` trainer take two updates on the same batches, bit-equal;
@@ -2088,6 +2102,7 @@ def multigpu_phase(totals, dense):
 
 
 def _sharded_decode(totals, dense, mesh, C, fold_seeds):
+    import torch.distributed as dist
     cfg = dense.config
     steps, depth, dec = 16, cfg.depth, cfg.vqc.dec.depth
     expect = {'K1': depth * 2 * steps + dec, 'K3': steps}
@@ -2112,28 +2127,38 @@ def _sharded_decode(totals, dense, mesh, C, fold_seeds):
     check_images(ref, 'unsharded generate')
     def placed_generate(pipe, what):
         C.reset_counts()
-        got, sec = drive(lambda: gen(pipe), expect, totals,
-                         f'multi-GPU: {what} generate B=8 16 steps bf16')
+        got, _ = drive(lambda: gen(pipe), expect, totals,
+                       f'multi-GPU: {what} generate B=8 16 steps bf16')
         check(torch.equal(got, ref), f'{what}: generate differs from the '
               'unsharded one at world size 1')
-        log(f'multi-GPU: {what}: collectives of the generate {C.snapshot()}')
-        return sec
+        check(C.snapshot() == C.elided and C.counts['all_gather'] > 0,
+              f'{what}: a collective over the one rank was issued: counted '
+              f'{C.snapshot()}, elided {C.elided}')
+        log(f'multi-GPU: {what}: collectives of the generate {C.snapshot()}, '
+            f'of which elided (one rank) {C.elided}')
 
-    pipe = copy().shard(mesh)
-    placed_generate(pipe, 'shard(mesh)')
-    # in turns on the warm card: placed, unplaced, unplaced, placed
-    turns = [_seconds(lambda: gen(p)) for p in (pipe, dense, dense, pipe)]
-    placed_s, plain_s = turns[0] + turns[3], turns[1] + turns[2]
-    del pipe
-    gc.collect()
+    tp = copy().shard(mesh)
+    placed_generate(tp, 'shard(mesh)')
     pipe = copy().shard(mesh, sequence_parallel=True)
-    sp_s = placed_generate(pipe, 'shard(mesh, sequence_parallel=True)')
-    # what one collective over the one rank costs: 16 MB, the hidden state
-    # of a block at B = 8
+    placed_generate(pipe, 'shard(mesh, sequence_parallel=True)')
+    # in turns on the warm card, two runs each
+    order = (('TP', tp), ('unsharded', dense), ('SP', pipe), ('SP', pipe),
+             ('unsharded', dense), ('TP', tp))
+    turns = [(name, _seconds(lambda: gen(p))) for name, p in order]
+    secs = {name: sum(t for n, t in turns if n == name) / 2
+            for name, _ in order}
+    # what the port no longer issues: one NCCL all-reduce of 16 MB (the
+    # hidden state of a block at B = 8) over the one rank, through
+    # torch.distributed directly (collectives.all_reduce elides it)
+    group = mesh.group('model')
     h = torch.randn(8, 1024, 1024, device='cuda', dtype=torch.bfloat16)
-    per_ms = median_ms(lambda: C.all_reduce(h, mesh.group('model')), 20)
-    host = _seconds(lambda: [C.all_reduce(h, mesh.group('model'))
+    want = h.clone()
+    per_ms = median_ms(lambda: dist.all_reduce(h, group=group), 20)
+    host = _seconds(lambda: [dist.all_reduce(h, group=group)
                              for _ in range(20)]) / 20 * 1e3
+    check(torch.equal(h, want), 'a one-rank NCCL all-reduce changed its '
+          'tensor')
+    del h, want
     seeds = [31, 32, 33]
     C.reset_counts()
     # the sequence-parallel pipeline, served as it is placed
@@ -2160,13 +2185,36 @@ def _sharded_decode(totals, dense, mesh, C, fold_seeds):
           'engine under the mesh: images differ from the unsharded '
           'generate of its padded batch')
     del pipe
-    log(f'multi-GPU generate B=8 16 steps bf16 at world size 1 (host clock): '
-        f'shard(mesh) {placed_s / 2:.4f} s against unsharded '
-        f'{plain_s / 2:.4f} s ({placed_s / plain_s:.3f}x; two runs each, '
-        f'in turns), shard(mesh, sequence_parallel=True) {sp_s:.4f} s '
-        f'(one run); both bit-equal to the unsharded images; the engine over '
-        f'the mesh bit-equal to generate of its padded batch; one all-reduce '
-        f'of 16 MB over the one rank {per_ms:.4f} ms on CUDA events, '
+    gc.collect()
+
+    # int8 after the carve: the sharded copy quantized, against a copy
+    # quantized unsharded; one run each
+    pipe = copy().quantize('w8a8')
+    q_ref, _ = drive(lambda: gen(pipe), expect, totals,
+                     'multi-GPU: quantize(w8a8) generate B=8 16 steps')
+    check_images(q_ref, 'w8a8 generate')
+    del pipe
+    tp.quantize('w8a8')
+    C.reset_counts()
+    q_got, _ = drive(lambda: gen(tp), expect, totals,
+                     'multi-GPU: shard(mesh).quantize(w8a8) generate B=8 '
+                     '16 steps')
+    check(torch.equal(q_got, q_ref), 'shard(mesh).quantize(w8a8): generate '
+          'differs from quantize(w8a8) at world size 1')
+    log(f'multi-GPU: shard(mesh).quantize(w8a8) generate bit-equal to '
+        f'quantize(w8a8); collectives {C.snapshot()}, elided {C.elided}')
+    del tp
+    plain = secs['unsharded']
+    log(f'multi-GPU generate B=8 16 steps bf16 at world size 1 (host clock, '
+        f'two runs each, in turns: '
+        f'{" ".join(f"{n} {t:.4f}" for n, t in turns)}): shard(mesh) '
+        f'{secs["TP"]:.4f} s ({secs["TP"] / plain:.3f}x) and shard(mesh, '
+        f'sequence_parallel=True) {secs["SP"]:.4f} s '
+        f'({secs["SP"] / plain:.3f}x) against unsharded {plain:.4f} s; both '
+        f'bit-equal to the unsharded images, every collective over the one '
+        f'rank elided; the engine over the mesh bit-equal to generate of its '
+        f'padded batch; one NCCL all-reduce of 16 MB over the one rank '
+        f'(issued directly, unchanged) {per_ms:.4f} ms on CUDA events, '
         f'{host:.4f} ms of host time; {CARD}')
 
 
@@ -2211,8 +2259,9 @@ def _mesh_training(totals, mesh, C, pp_stack_apply, stack_apply):
                   f'({len(diff)} differ)')
         counts = C.snapshot()
         check(counts['all_reduce'] > 0 and counts['all_gather'] > 0
-              and counts['reduce_scatter'] > 0 and placed._sync.sliced > 0,
-              f'DP + ZeRO update collectives {counts}, '
+              and counts['reduce_scatter'] > 0 and placed._sync.sliced > 0
+              and C.elided == counts,
+              f'DP + ZeRO update collectives {counts} (elided {C.elided}), '
               f'{placed._sync.sliced} sliced')
         log(f'multi-GPU trainer (paintmindv1 width, depth 2, Lion, bf16 '
             f'compute): two updates with DP + ZeRO-1 at world size 1 '

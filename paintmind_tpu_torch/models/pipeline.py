@@ -757,7 +757,13 @@ class Pipeline(nn.Module):
         and int8 products, or 'w8', weight-only) and, with ``head``, of the
         (dim, 8192) vocab projection.  The stage-1 VQGAN stays in floating
         point.  Call after ``from_pretrained``: a quantized pipeline loads
-        only quantized checkpoints of its own mode.  Returns self."""
+        only quantized checkpoints of its own mode.  Returns self.
+
+        Either side of ``shard(mesh)`` gives the same global int8 tree (a
+        carved layer becomes its slice of the whole layer's ``QLinear``:
+        ``parallel.mesh.quantize_carved``; every rank of the mesh calls
+        it), and after ``enable_pipeline_parallel`` each stage quantizes the
+        whole layers it holds: the JAX package's stage-placed tree."""
         from ..nn import quant
         if self.config.num_experts:
             raise NotImplementedError(
@@ -765,11 +771,6 @@ class Pipeline(nn.Module):
                 'expert leaves are (depth, E, in, out) stacks the per-linear '
                 'quantizer does not cover, and partially-quantized blocks '
                 'would silently skew routing-vs-expert numerics')
-        if self.mesh is not None:
-            raise RuntimeError('quantize() before shard(): a row-parallel '
-                               'scale is taken over all input features, so '
-                               'the carve must cut an already-quantized '
-                               'layer')
         if self._quantized:
             raise RuntimeError(
                 f'already quantized ({self._quantized!r}) — quantization '
@@ -829,8 +830,24 @@ class Pipeline(nn.Module):
         if self.config.depth % stages:
             raise ValueError(f'depth {self.config.depth} must be '
                              f'divisible by {stages} pipeline stages')
+        if self.mesh is not None:
+            raise RuntimeError('this pipeline is already placed (shard() '
+                               'or enable_pipeline_parallel())')
         shard_for_pp(self.transformer, mesh, int(microbatches))
         self.mesh = mesh
+        return self
+
+    def disable_pipeline_parallel(self):
+        """Undo ``enable_pipeline_parallel``: the other stages' layers are
+        gathered back over the pipe group (``parallel.pipeline_parallel.
+        unstage_for_pp``), so later decodes are the unpipelined ones and
+        ``enable_pipeline_parallel`` works again.  Every rank of the pipe
+        group calls it, as every rank calls ``enable_pipeline_parallel``.
+        A no-op on an unstaged pipeline.  Returns self."""
+        from ..parallel.pipeline_parallel import unstage_for_pp
+        if getattr(self.transformer, '_pp', None) is not None:
+            unstage_for_pp(self.transformer)
+            self.mesh = None
         return self
 
     # -- checkpointing ---------------------------------------------------

@@ -46,13 +46,17 @@ def _check_mode(mode):
 
 
 @torch.no_grad()
-def quantize_weight(weight):
+def quantize_weight(weight, amax_reduce=None):
     """A weight (..., out, in) -> (int8 (..., out, in), fp32 scale
     (..., out)): ``amax / 127`` over the input axis, round half to even,
     clip to ±127.  A depth-stacked (depth, out, in) weight gets per-(depth,
-    out) scales, as the JAX package's (depth, in, out) kernels do."""
+    out) scales, as the JAX package's (depth, in, out) kernels do.
+    ``amax_reduce``: the abs-max (..., out, 1) of this slice of the input
+    axis -> that of the whole axis (a row-parallel slice's all-reduce MAX)."""
     w = weight.float()
     amax = w.abs().amax(dim=-1, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     # a true division on every device (a CUDA tensor divided by a Python
     # scalar is multiplied by its reciprocal instead), as the JAX package's
     # eager quantize_linear divides
@@ -160,8 +164,13 @@ class QLinear(nn.Module):
 
 def quantize_linear(linear, mode='w8a8'):
     """A ``nn.Linear`` -> the ``QLinear`` of its weights (the module is not
-    changed; ``quantize_tree`` swaps it in)."""
+    changed; ``quantize_tree`` swaps it in).  A carved one (tensor
+    parallelism) gives its slice of the whole layer's
+    (``parallel.mesh.quantize_carved``)."""
     _check_mode(mode)
+    if '_pm_carve' in linear.__dict__:
+        from ..parallel.mesh import quantize_carved
+        return quantize_carved(linear, mode)
     wq, scale = quantize_weight(linear.weight.detach())
     return QLinear(wq, scale, linear.bias, mode=mode)
 
@@ -185,18 +194,20 @@ def is_quantized(module) -> bool:
 
 def quantize_tree(module, mode='w8a8', *, min_dim=64, predicate=None):
     """Swap, in place, every ``nn.Linear`` below ``module`` whose in and out
-    features are both >= ``min_dim`` (and for which ``predicate(path,
-    linear)`` holds, when given) for its ``QLinear``; returns ``module``.
+    features (of the whole layer, where it is carved) are both >=
+    ``min_dim`` (and for which ``predicate(path, linear)`` holds, when
+    given) for its ``QLinear``; returns ``module``.
     ``path`` is the tuple of module names from ``module`` down, without
     the layer indices of a ``nn.ModuleList``: the JAX package's path in its
     depth-stacked tree, e.g. ``('attn1', 'to_q')``."""
+    from ..parallel.mesh import whole_features
     _check_mode(mode)
 
     def walk(parent, path):
         for name, child in parent.named_children():
             sub = path if name.isdigit() else path + (name,)
             if isinstance(child, nn.Linear):
-                if (min(child.in_features, child.out_features) >= min_dim
+                if (min(whole_features(child)) >= min_dim
                         and (predicate is None or predicate(sub, child))):
                     setattr(parent, name, quantize_linear(child, mode))
             else:

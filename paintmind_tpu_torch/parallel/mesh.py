@@ -27,8 +27,9 @@ buffer name, the torch dim cut over 'model' and an interleave factor:
   * an int8 ``QLinear`` carves ``kernel_q`` like its fp weight; its
     per-channel ``scale`` goes with the output features (column-parallel)
     or stays whole (row-parallel), as ``_align_quantized`` places it.
-    Quantize first, then carve: a row-parallel scale is taken over all of
-    its input features.
+    A row-parallel scale is taken over all of its input features, so a
+    carved layer quantized later (``quantize_carved``) takes its abs-max
+    over 'model' (an all-reduce MAX): either order gives the same tree.
 
 ``full_state_dict`` is the inverse (every rank gets the full tensors, in
 the unplaced names), ``local_state_dict`` carves a full state dict for a
@@ -368,6 +369,41 @@ def _localize(mod, tp):
             m.out_features, m.in_features = m.kernel_q.shape
     if isinstance(mod, Attention):
         mod.heads //= tp
+
+
+def whole_features(linear):
+    """(in, out) features of the layer a (carved) ``Linear`` is cut from."""
+    out, inp = linear.weight.shape
+    carve = linear.__dict__.get('_pm_carve', {}).get('weight')
+    if carve is None:
+        return inp, out
+    tp = linear._pm_mesh.size(MODEL_AXIS)
+    return (inp * tp, out) if carve[0] == 1 else (inp, out * tp)
+
+
+@torch.no_grad()
+def quantize_carved(linear, mode):
+    """The ``QLinear`` of a carved ``Linear``: its slice of the whole
+    layer's, placed as ``shard_params`` carves a ``QLinear``.  A
+    column-parallel slice holds every input feature of its rows, so its
+    scales are its own; a row-parallel one holds a part of each row, so its
+    abs-max is all-reduced (MAX) over 'model' first.  Every rank of 'model'
+    calls it."""
+    from ..nn.quant import QLinear, quantize_weight
+    dim, inter = linear.__dict__['_pm_carve']['weight']
+    mesh = linear._pm_mesh
+    reduce = None
+    if dim == 1:
+        def reduce(amax):
+            return C.all_reduce(amax, mesh.group(MODEL_AXIS),
+                                dist.ReduceOp.MAX)
+    wq, scale = quantize_weight(linear.weight.detach(), reduce)
+    q = QLinear(wq, scale, linear.bias, mode=mode)
+    q._pm_carve = _linear_spec('', q, 'col' if dim == 0 else 'row', inter)
+    for leaf in q._pm_carve:
+        getattr(q, leaf)._pm_axes = (MODEL_AXIS,)
+    q._pm_mesh = mesh
+    return q
 
 
 def placed(module):

@@ -39,6 +39,7 @@ mean over its layers), then over the data group.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -369,6 +370,40 @@ def shard_for_pp(transformer, mesh, microbatches=2, pipe_axis=MODEL_AXIS):
     for p in held.parameters():
         p._pm_axes = (pipe_axis,)
     transformer._pp = PPInfo(group, stages, stage, int(microbatches), mesh)
+    return transformer
+
+
+@torch.no_grad()
+def unstage_for_pp(transformer):
+    """The inverse of ``shard_for_pp``: the other stages' layers gathered
+    over the pipe group (every stage calls it), ``transformer.layers`` the
+    whole stack again (an ``nn.ModuleList`` in depth order) and ``_pp``
+    cleared.  A stage's layers are whole blocks of one type, so a missing
+    one is a copy of a held one that loads the gathered weights.  The
+    identity on an unstaged transformer.  Returns the transformer."""
+    pp = getattr(transformer, '_pp', None)
+    if pp is None:
+        return transformer
+    held = transformer.layers
+    template = next(iter(held.values()))
+    device = next(template.parameters()).device
+    parts = {}
+    for part in C.all_gather_object(
+            {int(i): block.state_dict() for i, block in held.items()},
+            pp.group):
+        parts.update(part)
+    blocks = []
+    for i in sorted(parts):
+        if str(i) in held:
+            blocks.append(held[str(i)])
+            continue
+        block = copy.deepcopy(template)
+        block.load_state_dict({k: v.to(device) for k, v in parts[i].items()})
+        blocks.append(block)
+    transformer.layers = nn.ModuleList(blocks)
+    for p in transformer.layers.parameters():
+        vars(p).pop('_pm_axes', None)
+    transformer._pp = None
     return transformer
 
 

@@ -90,7 +90,9 @@ def split_seq(x, tp):
     if tp.size > 1 and x.shape[1] % tp.size:
         raise ValueError(f'sequence parallelism: {x.shape[1]} tokens do not '
                          f'divide over model={tp.size}')
-    return _SplitSeq.apply(x, tp.group)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SplitSeq.apply(x, tp.group)
+    return C.local_slice(x, tp.group, 1).contiguous()
 
 
 def gather_seq(x, tp):

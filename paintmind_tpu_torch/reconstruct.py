@@ -5,6 +5,8 @@ origin / reconstruct PIL figure."""
 
 from __future__ import annotations
 
+import io
+
 import numpy as np
 from PIL import Image, ImageDraw, ImageFont
 
@@ -19,11 +21,18 @@ def restore(x):
     return Image.fromarray((255 * x).astype(np.uint8))
 
 
+def download_image(url):
+    """The image at ``url`` (the standard library's ``urllib``)."""
+    import urllib.request
+    with urllib.request.urlopen(url) as resp:
+        return Image.open(io.BytesIO(resp.read()))
+
+
 def reconstruction(img_path=None, model_name='vit-s-vqgan',
                    titles=('origin', 'reconstruct'), checkpoint_path=None,
                    scale=0.8, device='cuda', model=None):
-    """``img_path``: a path or a PIL image (the port fetches no URLs).
-    Pass ``model`` to reuse a VQModel; otherwise one is built on ``device``
+    """``img_path``: a path, an ``http(s)`` URL (``download_image``) or a
+    PIL image.  Pass ``model`` to reuse a VQModel; otherwise one is built on ``device``
     from ``checkpoint_path``."""
     from . import factory
     from .utils.transform import stage1_transform
@@ -32,7 +41,7 @@ def reconstruction(img_path=None, model_name='vit-s-vqgan',
     if isinstance(img_path, Image.Image):
         img = img_path
     elif str(img_path).startswith('http'):
-        raise ValueError('reconstruction takes a local path or a PIL image')
+        img = download_image(img_path)
     else:
         img = Image.open(img_path).convert('RGB')
 

@@ -260,6 +260,12 @@ class _TrainerBase:
         self._barrier()
         return path
 
+    def finalize_checkpoints(self):
+        """Wait for the checkpoints in flight: none, since ``save()`` writes
+        its files before it returns (the JAX package's orbax writes in the
+        background).  Any rank may call it."""
+        return None
+
     def _restore_state(self, path):
         # a train state holds optimizer and generator states besides
         # tensors, so it is a full pickle: load only files a trainer wrote
@@ -581,6 +587,7 @@ class VQGANTrainer(_TrainerBase):
         if self.steps != getattr(self, '_last_saved_steps', None):
             self.save()  # final partial save interval
         self._sync_model()
+        self.finalize_checkpoints()
         print('Train finished!'
               if not self._preempted else 'Train preempted: state saved.')
 
@@ -929,6 +936,7 @@ class PaintMindTrainer(_TrainerBase):
         if self.steps != getattr(self, '_last_saved_steps', None):
             self.save()  # final partial save interval
         self._sync_model()
+        self.finalize_checkpoints()
         self.model.eval()
         print('Train finished!'
               if not self._preempted else 'Train preempted: state saved.')

@@ -82,6 +82,22 @@ def job_tp(inp, mesh):
         out['q_logits'] = _np(qpipe.transformer(x, ctx))
         out['q_logits_unsharded'] = ref_q
 
+        # int8 after the carve: shard(mesh).quantize(mode) holds the global
+        # tree of quantize(mode), carved as quantize(mode).shard(mesh) is
+        for mode in ('w8a8', 'w8'):
+            whole = make_pipe(inp).quantize(mode, min_dim=16)
+            after = make_pipe(inp).shard(mesh).quantize(mode, min_dim=16)
+            before = (qpipe if mode == 'w8a8' else
+                      make_pipe(inp).quantize(mode, min_dim=16).shard(mesh))
+            full, want = pmesh.full_state_dict(after), whole.state_dict()
+            local, local_want = after.state_dict(), before.state_dict()
+            out[f'sq_{mode}'] = {
+                'full_equal': full.keys() == want.keys() and all(
+                    torch.equal(full[k], want[k]) for k in want),
+                'local_equal': local.keys() == local_want.keys() and all(
+                    torch.equal(local[k], local_want[k]) for k in local),
+                'logits': _np(after.transformer(x, ctx))}
+
         # sequence parallelism: logits and the sampler loop
         sp = make_pipe(inp).shard(mesh, sequence_parallel=True)
         out['sp_logits'] = _np(sp.transformer(x, ctx))
@@ -418,28 +434,57 @@ def job_pp2(inp, mesh):
             runs[staged] = (t.steps, float(t.log['loss']), _full_trainable(p))
         out[f'trainer_{name}'] = runs
 
-    # PP decode against the dense decode, unguided and guided
+    # PP decode against the dense decode, unguided and guided; then
+    # disabled (the unstaged decode again) and enabled once more
+    ctx = _t(inp['gctx'])
+
+    def decode(p):
+        res = []
+        for guidance in (None, 2.0):
+            imgs = p.generate(text=ctx, timesteps=2, temperature=0.0,
+                              topk=1, guidance_scale=guidance,
+                              decode_steps='final',
+                              generator=torch.Generator().manual_seed(42))
+            init = torch.full((4, p.num_tokens), p.mask_token_id,
+                              dtype=torch.int32)
+            ids = tpl.generate_ids(
+                p, init, ctx, cfg=p.config, timesteps=2, temperature=0.0,
+                topk=1, guidance_scale=guidance,
+                generator=torch.Generator().manual_seed(42))[0]
+            res.append((_np(imgs[-1]), _np(ids)))
+        return res
+
     for name, kw in (('dense', 'pipe_kw'), ('moe', 'moe_kw')):
-        ctx = _t(inp['gctx'])
-        res = {}
-        for staged in (False, True):
-            p = make_pipe(inp, flat_key=None, kw_key=kw)
-            if staged:
-                p.enable_pipeline_parallel(mesh, 2)
-            res[staged] = []
-            for guidance in (None, 2.0):
-                imgs = p.generate(text=ctx, timesteps=2, temperature=0.0,
-                                  topk=1, guidance_scale=guidance,
-                                  decode_steps='final',
-                                  generator=torch.Generator().manual_seed(42))
-                init = torch.full((4, p.num_tokens), p.mask_token_id,
-                                  dtype=torch.int32)
-                ids = tpl.generate_ids(
-                    p, init, ctx, cfg=p.config, timesteps=2, temperature=0.0,
-                    topk=1, guidance_scale=guidance,
-                    generator=torch.Generator().manual_seed(42))[0]
-                res[staged].append((_np(imgs[-1]), _np(ids)))
+        res = {False: decode(make_pipe(inp, flat_key=None, kw_key=kw))}
+        p = make_pipe(inp, flat_key=None, kw_key=kw)
+        res[True] = decode(p.enable_pipeline_parallel(mesh, 2))
+        res['disabled'] = decode(p.disable_pipeline_parallel())
+        res['unstaged'] = (p.mesh is None and p.transformer._pp is None
+                           and type(p.transformer.layers) is torch.nn.ModuleList
+                           and len(p.transformer.layers) == p.config.depth)
+        res['again'] = decode(p.enable_pipeline_parallel(mesh, 2))
         out[f'generate_{name}'] = res
+
+    # int8 on a staged pipeline: each stage quantizes the whole layers it
+    # holds (the JAX package's stage-placed tree), and unstaging it gives
+    # quantize(mode)'s pipeline
+    whole = make_pipe(inp, flat_key=None).quantize('w8', min_dim=16)
+    p = make_pipe(inp, flat_key=None).enable_pipeline_parallel(mesh, 2)
+    p.quantize('w8', min_dim=16)
+    full, want = pmesh.full_state_dict(p), whole.state_dict()
+    out['pp_quant_full_equal'] = full.keys() == want.keys() and all(
+        torch.equal(full[k], want[k]) for k in want)
+    res = {'staged': decode(p)}
+    got = p.disable_pipeline_parallel().state_dict()
+    out['pp_quant_unstaged_equal'] = list(got) == list(want) and all(
+        torch.equal(got[k], want[k]) for k in want)
+    res['unstaged'], res['whole'] = decode(p), decode(whole)
+    out['pp_quant_decode'] = res
+    try:
+        make_pipe(inp, flat_key=None).shard(mesh).enable_pipeline_parallel(
+            mesh, 2)
+    except RuntimeError as e:
+        out['sharded_stage_error'] = str(e)
     out['counts'] = C.snapshot()
     return out
 

@@ -98,14 +98,17 @@ def tp_refs(jparams, tp_inputs):
     rec, loss = jvm.forward(jparams['vqgan'], jnp.asarray(i['img']),
                             J_PIPE.vqc, backend='xla', vq_backend='xla')
     attn = jfa._xla_reference(*(jnp.asarray(i[n]) for n in 'qkv'), 0.25)
-    tp = dict(jparams['transformer'])
-    tp['layers'] = jquant.quantize_tree(tp['layers'], 'w8a8', min_dim=16)
-    tp['to_logits'] = jquant.quantize_linear(tp['to_logits'], 'w8a8')
-    q_logits = jst2.cond_transformer_apply(tp, x, ctx, cfg=J_PIPE.tcfg,
-                                           backend='xla')
+    q_logits = {}
+    for mode in ('w8a8', 'w8'):
+        tp = dict(jparams['transformer'])
+        tp['layers'] = jquant.quantize_tree(tp['layers'], mode, min_dim=16)
+        tp['to_logits'] = jquant.quantize_linear(tp['to_logits'], mode)
+        q_logits[mode] = jst2.cond_transformer_apply(tp, x, ctx,
+                                                     cfg=J_PIPE.tcfg,
+                                                     backend='xla')
     return {k: np.asarray(v) for k, v in dict(
         logits=logits, rec=rec, vq_loss=loss, attn=attn,
-        q_logits=q_logits).items()}
+        q_logits=q_logits['w8a8'], q_logits_w8=q_logits['w8']).items()}
 
 
 # (data, model) layouts of the tensor-parallel job
@@ -158,6 +161,23 @@ def test_tp_int8_w8a8_logits_match_jax(tp_runs, tp_refs, layout):
     assert _maxabs(got, tp_refs['q_logits']) < 1e-5
     assert _maxabs(got, _rank_rows(outs, 'q_logits_unsharded',
                                    layout[1])) < 1e-5
+
+
+@pytest.mark.parametrize('layout', TP_LAYOUTS)
+@pytest.mark.parametrize('mode', ['w8a8', 'w8'])
+def test_tp_shard_then_quantize_matches_quantize(tp_runs, tp_refs, layout,
+                                                 mode):
+    """``quantize()`` after ``shard()``, as the JAX package allows (its
+    ``quantize`` works on global arrays): the gathered int8 tree equals the
+    unsharded ``quantize(mode)`` bit for bit, each rank's tensors equal
+    ``quantize(mode).shard(mesh)``'s, and the logits are within the w8a8
+    test's 1e-5 of JAX's quantized logits."""
+    outs = tp_runs[layout]
+    for o in outs:
+        assert o[f'sq_{mode}']['full_equal'] and o[f'sq_{mode}']['local_equal']
+    got = np.concatenate([o[f'sq_{mode}']['logits'] for o in outs[::layout[1]]])
+    want = tp_refs['q_logits' if mode == 'w8a8' else 'q_logits_w8']
+    assert _maxabs(got, want) < 1e-5
 
 
 @pytest.mark.parametrize('layout', TP_LAYOUTS)

@@ -251,6 +251,43 @@ def test_pp_trainer_matches_plain_trainer(runs, name):
 
 
 @pytest.mark.parametrize('name', ['dense', 'moe'])
+def test_pp_disable_returns_to_the_unstaged_decode(runs, name):
+    """``test_pipeline_parallel.py:240``: after ``disable_pipeline_parallel``
+    the decode is the unstaged one (ids equal, images within 1e-5: JAX's own
+    check) on a whole ``nn.ModuleList`` stack; enabled again, it gives the
+    first staged decode's ids and images bit for bit."""
+    for o in runs['s2']:
+        res = o[f'generate_{name}']
+        assert res['unstaged']
+        for (di, dids), (bi, bids) in zip(res[False], res['disabled']):
+            np.testing.assert_array_equal(bids, dids)
+            assert _maxabs(bi, di) < 1e-5
+        for (si, sids), (ai, aids) in zip(res[True], res['again']):
+            np.testing.assert_array_equal(aids, sids)
+            np.testing.assert_array_equal(ai, si)
+
+
+def test_pp_quantize_on_a_staged_pipeline(runs):
+    """``quantize('w8')`` after ``enable_pipeline_parallel``: the stages'
+    int8 layers gathered equal the unstaged ``quantize('w8')`` bit for bit
+    (the JAX package quantizes the stage-placed global tree), the staged
+    int8 decode gives the unstaged int8 decode's ids with images within 1e-4
+    (the staged test's bound), and after ``disable_pipeline_parallel`` the
+    pipeline holds the unstaged int8 tensors in their order and decodes
+    them bit for bit.  Staging a sharded pipeline raises."""
+    for o in runs['s2']:
+        assert o['pp_quant_full_equal'] and o['pp_quant_unstaged_equal']
+        res = o['pp_quant_decode']
+        for (wi, wids), (si, sids), (ui, uids) in zip(
+                res['whole'], res['staged'], res['unstaged']):
+            np.testing.assert_array_equal(sids, wids)
+            assert _maxabs(si, wi) < 1e-4
+            np.testing.assert_array_equal(uids, wids)
+            np.testing.assert_array_equal(ui, wi)
+        assert 'already placed' in o['sharded_stage_error']
+
+
+@pytest.mark.parametrize('name', ['dense', 'moe'])
 def test_pp_generate_matches_dense(runs, name):
     """``test_pipeline_parallel.py:216`` and ``:403``: the pipelined decode
     (temperature 0, top-1) gives the dense decode's ids, unguided and
