@@ -517,7 +517,8 @@ K3_OPS_PER_LOGIT = 5
 
 
 def k3_with_seed(logits, temperature, k, g):
-    """One K3 launch, and the seed it drew from ``g``."""
+    """One K3 (K3r above ``sm.MAX_K``) launch, and the seed it drew from
+    ``g``."""
     state = g.get_state()
     seed = sm.draw_seed(g, 'cuda')
     g.set_state(state)
@@ -563,7 +564,7 @@ def check_k3(g):
     version on the kernel's own noise (``k3_against_plain``) at temperature
     1, 0.7 and per-sample, fp32 and bf16; at a ragged size (T = 37, V = 500,
     k = 3, rows off the 16-byte grid) and on mass ties (integer logits) at
-    temperature 1e-10 and 1, k = 1, 3, 16.  One seed twice: the same bits;
+    temperature 1e-10 and 1, k = 1, 3, 5.  One seed twice: the same bits;
     two seeds: different.  Times bf16 and fp32 at 8192 x 8192 and bf16 at
     1024 x 8192 (B = 1; 16.8 MB, which the 50 MB L2 can hold between the
     timed launches)."""
@@ -618,7 +619,7 @@ def check_k3(g):
     ragged = torch.randn(37, 500, device='cuda', generator=g) * 3
     for name, lg in (('mass ties', ties), ('ragged', ragged)):
         for dtype in (torch.float32, torch.bfloat16):
-            for kk in (1, 3, 16):
+            for kk in (1, 3, 5):
                 for temp in (1e-10, 1.0):
                     # one element off the 16-byte grid: every row has a head
                     off = torch.empty(lg.numel() + 1, device='cuda', dtype=dtype)
@@ -647,11 +648,7 @@ def check_k3(g):
     one = lb[:1024].contiguous()
     ms1 = time_ms(lambda: sm.fused_gumbel_topk_sample(one, 1.0, k, generator=g), 50)
 
-    def k3_bound(rows, size):
-        return bound(rows * v * size + 8 + rows * (4 + 4),
-                     rows * v * K3_OPS_PER_LOGIT, torch.float32)
-
-    bms, by = k3_bound(t, 2)
+    bms, by = k3_bound(t, v, 2)
     log(f'K3 T={t} V={v} k={k}: temp 1e-10 conf_err={conf_err:.3e}; temp 1 '
         f'top-5 softmax frequency err={dist_err:.4f} over 8192 draws; against '
         f'the plain version on the kernel\'s own noise: {near} of {6 * t} rows '
@@ -659,25 +656,37 @@ def check_k3(g):
         f'mass-tie rows, conf err {plain_err:.3e}; bf16 ms={ms:.4f} = '
         f'{t * v * 2 / ms / 1e6:.0f} GB/s plain_ms={plain_ms:.4f} (noise given) '
         f'bound_ms={bms:.4f} ({by}); fp32 ms={ms32:.4f} = '
-        f'{t * v * 4 / ms32 / 1e6:.0f} GB/s bound_ms={k3_bound(t, 4)[0]:.4f}; '
+        f'{t * v * 4 / ms32 / 1e6:.0f} GB/s bound_ms={k3_bound(t, v, 4)[0]:.4f}; '
         f'bf16 T=1024 ms={ms1:.4f} = {1024 * v * 2 / ms1 / 1e6:.0f} GB/s '
-        f'bound_ms={k3_bound(1024, 2)[0]:.4f}; {CARD}')
+        f'bound_ms={k3_bound(1024, v, 2)[0]:.4f}; {CARD}')
     return dict(max_abs_err=max(conf_err, plain_err), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def k3_bound(rows, v, size):
+    """K3's (and K3r's) least time: one read of the logits, (pred, conf)
+    written, K3_OPS_PER_LOGIT fp32 operations a logit."""
+    return bound(rows * v * size + 8 + rows * (4 + 4),
+                 rows * v * K3_OPS_PER_LOGIT, torch.float32)
+
+
 def check_k3_radix(g):
-    """K3's k > 16 kernel (one block a row, radix select) against the plain
-    version sample for sample on its own Philox noise (``k3_against_plain``)
-    for k = 17, 32, 100 and V: ragged rows (T = 37, V = 500, also one
-    element off the 16-byte grid), mass ties (integer logits) and rows of
-    +0 / -0, fp32 and bf16, temperature 1e-10 (no near-tie allowed) and 1; a
-    row of 20000 classes (keys in more than 48 KB of shared memory) and one
-    of 60000 (too long for shared memory: every pass reads the row again);
-    the main path's shape (8·1024, 8192) at k = 32 at temperature 1 and per
-    sample.  One seed twice: the same bits.  Times bf16 8192 x 8192 at
-    k = 32 beside its bound (one read of the logits, as for K3) and the
-    plain version."""
+    """K3's radix-select kernel (K3r: one block a row; k > 5) against the
+    plain version sample for sample on its own Philox noise
+    (``k3_against_plain``) for k = 6, 16, 17, 32, 100 and V: ragged rows
+    (T = 37, V = 500, also one element off the 16-byte grid), mass ties
+    (integer logits) and rows of +0 / -0, fp32 and bf16, temperature 1e-10
+    (no near-tie allowed) and 1; rows shorter than a 16-byte chunk past
+    their head (V = 7 and 13, k = 6 and V, on the grid and off it); 8192-wide mass-tie rows (integers 0-3, fp32
+    and bf16) whose first bin overflows the per-warp buffer (every row, by
+    the CPU emulation ``sample_radix``), at k = 32 and 1500; a row of 20000
+    classes and two of 60000 (longer than the registers hold: every sweep
+    reads the row again); the main path's shape (8·1024, 8192) at k = 32 at
+    temperature 1 and per sample.  K3r forced at k = 5 against K3 on one
+    seed: pred bit-equal, conf within 1e-6.  One seed twice: the same bits;
+    no sample outside the top-k.  Times, each beside its bound (one read of
+    the logits, as for K3) and its GB/s: bf16 8192 x 8192 at k = 32 (and the
+    plain version), 16, 17, 64 and 256, fp32 at k = 32."""
     near, small, plain_err = 0, 0, 0.0
     ties = torch.randint(0, 4, (37, 500), device='cuda', generator=g).float()
     ragged = torch.randn(37, 500, device='cuda', generator=g) * 3
@@ -685,7 +694,7 @@ def check_k3_radix(g):
                         0.0, -0.0)
     for name, lg in (('mass ties', ties), ('ragged', ragged), ('+-0', zeros)):
         for dtype in (torch.float32, torch.bfloat16):
-            for kk in (17, 32, 100, 500):
+            for kk in (6, 16, 17, 32, 100, 500):
                 for temp in (1e-10, 1.0):
                     off = torch.empty(lg.numel() + 1, device='cuda', dtype=dtype)
                     for view in (lg.to(dtype), off[1:].view_as(lg).copy_(lg)):
@@ -693,6 +702,31 @@ def check_k3_radix(g):
                             view, temp, kk, g, f'{name} {dtype} k={kk} temp {temp}',
                             near_tie=1e-5 if temp == 1.0 else 0.0)
                         small, plain_err = small + n, max(plain_err, err)
+    for v in (7, 13):  # no whole chunk, or one, past the head
+        lg = torch.randn(37, v, device='cuda', generator=g) * 3
+        for dtype in (torch.float32, torch.bfloat16):
+            for kk in (6, v):
+                for temp in (1e-10, 1.0):
+                    off = torch.empty(lg.numel() + 1, device='cuda', dtype=dtype)
+                    for view in (lg.to(dtype), off[1:].view_as(lg).copy_(lg)):
+                        n, err = k3_against_plain(
+                            view, temp, kk, g, f'V={v} {dtype} k={kk} temp {temp}',
+                            near_tie=1e-5 if temp == 1.0 else 0.0)
+                        small, plain_err = small + n, max(plain_err, err)
+    wide_ties = torch.randint(0, 4, (64, 8192), device='cuda', generator=g).float()
+    for dtype in (torch.float32, torch.bfloat16):
+        lg = wide_ties.to(dtype)
+        for kk, temps in ((32, (1e-10, 1.0)), (1500, (1.0,))):
+            overflow = sm.sample_radix(lg[:8].cpu(), 1.0, kk,
+                                       torch.zeros(8, 8192),
+                                       with_overflow=True)[3]
+            check(bool(overflow.all()),
+                  f'K3r: the 8192-wide mass ties do not overflow at k={kk}')
+            for temp in temps:
+                n, err = k3_against_plain(
+                    lg, temp, kk, g, f'8192-wide mass ties {dtype} k={kk} temp {temp}',
+                    near_tie=1e-5 if temp == 1.0 else 0.0)
+                small, plain_err = small + n, max(plain_err, err)
     for t, v, kk in ((16, 20000, 64), (4, 60000, 17), (4, 60000, 1000)):
         lg = torch.randn(t, v, device='cuda', generator=g) * 3
         n, err = k3_against_plain(lg, 1.0, kk, g, f'T={t} V={v} k={kk}')
@@ -707,6 +741,16 @@ def check_k3_radix(g):
             near, plain_err = near + n, max(plain_err, err)
     lb = wide.reshape(t, v).to(torch.bfloat16)
     del wide, lg
+    # both kernels compute one function: the same pred on the same seed
+    state = g.get_state()
+    warp = sm.fused_gumbel_topk_sample(lb, 0.8, sm.MAX_K, generator=g)
+    g.set_state(state)
+    block = sm._fused_sample(lb, 0.8, sm.MAX_K, g, True)
+    check(torch.equal(warp[0], block[0]),
+          f'K3r and K3 differ in pred at k={sm.MAX_K} on one seed')
+    same_err = (warp[1] - block[1]).abs().max().item()
+    check(same_err <= 1e-6, f'K3r and K3 conf differ by {same_err} at k={sm.MAX_K}')
+    del warp, block
     state = g.get_state()
     first = sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g)
     g.set_state(state)
@@ -721,14 +765,21 @@ def check_k3_radix(g):
     ms = time_ms(lambda: sm.fused_gumbel_topk_sample(lb, 1.0, k, generator=g), 50)
     plain_ms = time_ms(lambda: sm.gumbel_topk_sample_plain(lb, 1.0, k, noise), 2)
     del noise
-    bms, by = bound(t * v * 2 + 8 + t * (4 + 4), t * v * K3_OPS_PER_LOGIT,
-                    torch.float32)
-    log(f'K3r (k > 16) T={t} V={v} k={k}: against the plain version on the '
+    bms, by = k3_bound(t, v, 2)
+    times = []
+    for what, lg, kk in (('bf16', lb, 16), ('bf16', lb, 17), ('bf16', lb, 64),
+                         ('bf16', lb, 256), ('fp32', lb.float(), 32)):
+        kms = time_ms(lambda: sm.fused_gumbel_topk_sample(lg, 1.0, kk, generator=g), 50)
+        size = lg.element_size()
+        times.append(f'K3r {what} k={kk} ms={kms:.4f} = {t * v * size / kms / 1e6:.0f} '
+                     f'GB/s bound_ms={k3_bound(t, v, size)[0]:.4f}')
+    log(f'K3r (k > {sm.MAX_K}) T={t} V={v} k={k}: against the plain version on the '
         f"kernel's own noise: {near} of {4 * t} rows differ at near-ties "
         f'(< 1e-5), {small} of the small ragged / mass-tie / +-0 / long rows, '
-        f'conf err {plain_err:.3e}; bf16 ms={ms:.4f} = '
+        f'conf err {plain_err:.3e}; K3r = K3 in pred at k = {sm.MAX_K}, conf '
+        f'within {same_err:.3e}; bf16 ms={ms:.4f} = '
         f'{t * v * 2 / ms / 1e6:.0f} GB/s plain_ms={plain_ms:.4f} (noise '
-        f'given) bound_ms={bms:.4f} ({by}); {CARD}')
+        f'given) bound_ms={bms:.4f} ({by}); {"; ".join(times)}; {CARD}')
     return dict(max_abs_err=plain_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
 
@@ -1394,10 +1445,10 @@ def record_batches(pipe, calls):
 
 def expected_launches(calls, cfg):
     """Kernel launches of the recorded batches: per sampler step K3 once
-    (K3r for top-k > 16) and K1 once per attention of each of the depth
-    layers (self + cross, and the unconditional half's self-attending cross
-    layer with guidance), the decoder's K1 per batch; an encode (paint,
-    reconstruct) adds the encoder's K1 and one K2."""
+    (K3r above top-k ``sm.MAX_K``) and K1 once per attention of
+    each of the depth layers (self + cross, and the unconditional half's
+    self-attending cross layer with guidance), the decoder's K1 per batch;
+    an encode (paint, reconstruct) adds the encoder's K1 and one K2."""
     depth, enc, dec = cfg.depth, cfg.vqc.enc.depth, cfg.vqc.dec.depth
     want = dict.fromkeys(KERNEL_COUNTERS, 0)
     for kind, steps, topk, guided, *_ in calls:
@@ -3102,7 +3153,7 @@ def main():
         'K3': ('fused_gumbel_topk_sample', 'cuda',
                'paintmind_tpu_torch/csrc/sampling.cu',
                'paintmind_tpu/ops/sampling.py:136'),
-        'K3r': ('fused_gumbel_topk_sample (k > 16, radix select)', 'cuda',
+        'K3r': ('fused_gumbel_topk_sample (k > 5, radix select)', 'cuda',
                 'paintmind_tpu_torch/csrc/sampling.cu',
                 'paintmind_tpu/ops/sampling.py:136'),
         'K4': ('flash_attention_bwd', 'cuda',

@@ -43,31 +43,43 @@
 //     and logf (so the plain PyTorch version can follow it), and one more
 //     tournament picks the largest score, the lower column on a tie.
 //
-// The list length is a template constant: 1, 5 or 16.  A k between two of
-// them runs the next longer list and merges only k rounds (the merge yields
-// the entries in order, so its first k are the top k).
+// The list length is a template constant: 1 or 5.  A k between them runs
+// the 5-entry list and merges only k rounds (the merge yields the entries in
+// order, so its first k are the top k).
 //
-// k > 16 (any k up to V) goes to a second kernel, sample_rows_radix, below:
-// per-lane lists that long would not fit in registers.  It gives a row to a
-// block of 256 threads and computes the same function, the same survivors and
-// the same noise, bit for bit:
+// A second kernel, sample_rows_radix (K3r), below, takes any k up to V, and
+// the wrapper sends it every k > 5: longer lists cost more than it does (on an
+// H100 at bf16 8192 x 8192, 16-entry lists took 0.72 ms at k = 16 and 0.45 ms
+// at k = 6, K3r 0.12 ms at either).  It gives a row to a block of 256 threads
+// and computes the same function, the same survivors and the same noise, bit
+// for bit.  A row is selected on order-preserving integer keys (a larger
+// float is a larger key; -0 and +0 share one): 32-bit keys for fp32, 16-bit
+// keys for bf16 (a bf16 widened to fp32 has its low 16 bits zero, so its
+// key's low half says nothing).
 //
-//   * one read of the row (16-byte streaming loads, scalar head and tail as
-//     above) turns each value into an order-preserving 32-bit key (a larger
-//     float is a larger key; -0 and +0 share one) kept in shared memory when
-//     the row fits (8192 keys are 32 KB; else in the block's row of a
-//     scratch buffer the wrapper allocates), and feeds an online log-sum-exp;
-//   * a radix select over those keys, four passes of 8 bits, finds the k-th
-//     largest key T and how many of the k lie strictly above it.  A pass is a
-//     256-bin histogram of the next digit over the keys that match the
-//     prefix so far (warp-aggregated shared-memory atomics: the lanes with one
-//     digit add their count once) and a block suffix scan of the bins;
-//   * the keys equal to T are admitted lowest column first: each warp owns a
-//     contiguous run of columns, counts its equal keys by ballot, and a warp
-//     admits the first k - greater of them after the runs before it;
-//   * the k survivors draw Philox noise at the same counter under the same
-//     seed, and a block reduction takes the argmax of value / temp + g, the
-//     lower column on a tie.
+//   * Pass 1 reads the row once, in 16-byte streaming loads (a warp's load is
+//     512 contiguous bytes; the elements before the first 16-byte boundary
+//     and past the last whole chunk one per lane), feeds an online
+//     log-sum-exp, counts the keys' first digit, their top 11 bits (sign,
+//     exponent and the top mantissa bits), in a 2048-bin shared histogram,
+//     and keeps the keys of a row of up to 8192 elements in shared memory
+//     (16 KB in bf16, 32 KB in fp32); a longer row is read again from memory
+//     (L2) by every later sweep.  A block scan from the top finds the bin b
+//     that holds the k-th largest key.
+//   * One sweep writes every key whose digit is >= b (the survivors above b
+//     and the candidates in b), with its column, into a 1024-entry shared
+//     buffer in column order: thread t takes a contiguous run of chunks, and
+//     a block scan of the threads' counts places their keys.
+//   * The rest of the row is one warp's, with no block barrier: over the
+//     buffer (over the row again when it overflowed: mass ties), the later
+//     passes (bf16: 5 bits; fp32: 11, then 10) count the keys that match the
+//     prefix so far, until the chosen bin holds exactly the keys still
+//     needed or the key is complete; the keys of the last chosen bin (the
+//     tied class) are admitted lowest column first, by a running count over
+//     the entries in column order; the kept entries draw Philox noise at
+//     the same counter under the same seed; shuffles take the argmax of
+//     value / temp + g (the lower column on a tie) and merge the
+//     log-sum-exp.
 //
 // Layout: logits (rows, V) bf16 or fp32, contiguous; pred (rows,) int32; conf
 // (rows,) fp32; seed one 64-bit word in device memory; the temperature either
@@ -384,24 +396,25 @@ int launch(int list, const void* logits, const float* temp_ptr, float temp_value
   sample_rows<T, K><<<blocks, WARPS * 32, 0, stream>>>(                               \
       static_cast<const T*>(logits), temp_ptr, temp_value, rows_per_temp, seed, pred, \
       conf, rows, V, k)
-  switch (list) {
-    case 1: SAMPLE_LAUNCH(1); break;
-    case 5: SAMPLE_LAUNCH(5); break;
-    default: SAMPLE_LAUNCH(16); break;
-  }
+  if (list == 1)
+    SAMPLE_LAUNCH(1);
+  else
+    SAMPLE_LAUNCH(5);
 #undef SAMPLE_LAUNCH
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// k > 16: one block a row, radix select (see the head of this file)
+// K3r: one block a row, radix select (see the head of this file)
 // ---------------------------------------------------------------------------
 
-constexpr int RS_THREADS = 256;  // one thread per bin of an 8-bit digit
+constexpr int RS_THREADS = 256;
 constexpr int RS_WARPS = RS_THREADS / 32;
-constexpr int BINS = 256;
-constexpr size_t ROW_SMEM_MAX = 200 * 1024;  // rows up to 51200 keys stay in shared memory
-                                             // (RADIX_ROW_SMEM_MAX in ops/sampling.py)
+constexpr int FIRST_BITS = 11;  // the first digit (RADIX_FIRST_BITS in ops/sampling.py)
+constexpr int LATER_BITS = 11;  // widest digit of a later pass (RADIX_LATER_BITS)
+constexpr int HIST_WORDS = 1 << (FIRST_BITS > LATER_BITS ? FIRST_BITS : LATER_BITS);
+constexpr int CAP = 1024;     // entries of the buffer (RADIX_CAP)
+constexpr int REG_V = 8192;   // rows up to this long keep their keys in shared memory
 
 // Larger float, larger key; -0 and +0 map to one key, as they compare equal.
 __device__ __forceinline__ uint32_t order_key(float x) {
@@ -413,35 +426,188 @@ __device__ __forceinline__ float key_value(uint32_t key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
-struct RadixShared {
-  unsigned hist[BINS];
-  unsigned warp_sum[RS_WARPS];
-  float red_m[RS_WARPS], red_s[RS_WARPS];
-  float red_score[RS_WARPS];
-  int red_col[RS_WARPS];
-  uint32_t prefix;
-  int remaining;
+// bits of the selection's keys: the top half of the fp32 key for bf16
+template <typename T>
+struct KeyBits {
+  static constexpr int value = 32;
+};
+template <>
+struct KeyBits<__nv_bfloat16> {
+  static constexpr int value = 16;
 };
 
-// Inclusive prefix sum of one value per thread over the block, in thread order.
-__device__ __forceinline__ unsigned block_inclusive_scan(unsigned x, RadixShared& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+template <int BITS>
+__device__ __forceinline__ uint32_t key_of(float x) {
+  return order_key(x) >> (32 - BITS);
+}
+
+template <int BITS>
+__device__ __forceinline__ float value_of(uint32_t key) {
+  if (BITS == 32) return key_value(key);
+  return key_value((key << 16) | ((key & 0x8000u) ? 0u : 0xffffu));
+}
+
+// A chunk's keys in 16 bytes: bf16 two a word (the lower column in the low
+// half), fp32 one.
+template <int BITS, int N>
+__device__ __forceinline__ uint4 pack(const uint32_t (&k)[N]) {
+  if constexpr (BITS == 16)
+    return make_uint4(k[0] | (k[1] << 16), k[2] | (k[3] << 16), k[4] | (k[5] << 16),
+                      k[6] | (k[7] << 16));
+  else
+    return make_uint4(k[0], k[1], k[2], k[3]);
+}
+
+template <int BITS, int N>
+__device__ __forceinline__ void unpack(const uint4& q, uint32_t (&k)[N]) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    if constexpr (BITS == 16)
+      k[e] = (w[e >> 1] >> (16 * (e & 1))) & 0xffffu;
+    else
+      k[e] = w[e];
+  }
+}
+
+// The key of element e of chunk c from shared memory.
+template <int BITS>
+__device__ __forceinline__ uint32_t chunk_key(const uint4* kq, int c, int e) {
+  if constexpr (BITS == 16)
+    return reinterpret_cast<const unsigned short*>(kq)[c * 8 + e];
+  else
+    return reinterpret_cast<const uint32_t*>(kq)[c * 4 + e];
+}
+
+// Where a row's elements lie: `head` elements before its first 16-byte
+// boundary, `nvec` whole chunks, the tail from column tail0; rw chunks a
+// thread.
+struct RowLayout {
+  int head, nvec, rw, tail0;
+};
+
+struct RadixShared {
+  alignas(16) unsigned hist[HIST_WORDS];
+  alignas(16) unsigned warp_sum[RS_WARPS];
+  uint32_t cand_key[CAP];  // the keys at or above the first bin, in column order
+  int cand_col[CAP];
+  uint32_t head_key[8], tail_key[8];
+  float red_m[RS_WARPS], red_s[RS_WARPS];
+  unsigned digit, above, inbin, total;
+};
+
+// a[0] + ... + a[n - 1] of the warps' sums, n < RS_WARPS (two 16-byte reads)
+__device__ __forceinline__ unsigned sum_below(const unsigned* a, int n) {
+  const uint4 lo = *reinterpret_cast<const uint4*>(a);
+  const uint4 hi = *reinterpret_cast<const uint4*>(a + 4);
+  return (n > 0 ? lo.x : 0u) + (n > 1 ? lo.y : 0u) + (n > 2 ? lo.z : 0u) +
+         (n > 3 ? lo.w : 0u) + (n > 4 ? hi.x : 0u) + (n > 5 ? hi.y : 0u) +
+         (n > 6 ? hi.z : 0u);
+}
+
+__device__ __forceinline__ unsigned warp_inclusive_scan(unsigned x) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const unsigned y = __shfl_up_sync(FULL, x, off);
     if (lane >= off) x += y;
   }
-  if (lane == 31) sh.warp_sum[warp] = x;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) x += sh.warp_sum[w];
   return x;
 }
 
-// N consecutive values from column col0 into a thread's online log-sum-exp
-// (m, s), and their keys into the row's key buffer.
-template <int N>
-__device__ __forceinline__ void read_chunk(const float (&x)[N], int col0, float& m, float& s,
-                                           uint32_t* keys) {
+// Inclusive prefix sum of one value per thread over the block, in thread order.
+__device__ __forceinline__ unsigned block_inclusive_scan(unsigned x, RadixShared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  x = warp_inclusive_scan(x);
+  if (lane == 31) sh.warp_sum[warp] = x;
+  __syncthreads();
+  return x + sum_below(sh.warp_sum, warp);
+}
+
+// The sum of bins [base, base + per) (16-byte reads where per is a multiple
+// of 4; base is a multiple of per).
+__device__ __forceinline__ unsigned bins_sum(const unsigned* hist, int base, int per) {
+  unsigned h = 0;
+  const unsigned* p = hist + base;
+  if (per % 4 == 0) {
+    for (int i = 0; i < per; i += 4) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p + i);
+      h += q.x + q.y + q.z + q.w;
+    }
+  } else {
+    for (int i = 0; i < per; ++i) h += p[i];
+  }
+  return h;
+}
+
+// The bin of the first pass's histogram (nb bins) that holds the
+// remaining-th largest key, the bins taken from the top:
+// sh.digit, with the counts of the bins above it (sh.above) and of its own
+// (sh.inbin).  Thread t sums the bins [nb - (t + 1) * per, nb - t * per).
+// Every thread calls it; it ends with a barrier.
+__device__ __forceinline__ void block_pick(const unsigned* hist, int nb, unsigned remaining,
+                                           RadixShared& sh) {
+  const int per = nb / RS_THREADS;
+  const int base = nb - ((int)threadIdx.x + 1) * per;
+  const unsigned h = bins_sum(hist, base, per);
+  const unsigned incl = block_inclusive_scan(h, sh);
+  if (h > 0 && incl >= remaining && incl - h < remaining) {
+    unsigned run = incl - h;
+    for (int bin = base + per - 1; bin >= base; --bin) {
+      const unsigned n = bins_sum(hist, bin, 1);
+      if (run + n >= remaining) {
+        sh.digit = bin;
+        sh.above = run;
+        sh.inbin = n;
+        break;
+      }
+      run += n;
+    }
+  }
+  __syncthreads();
+}
+
+// The same over hist[0, nb) by one warp: lane l sums a run of bins from the
+// top, and the lane whose run holds the key narrows it down, until a run is
+// one bin.  Returns the bin; above and inbin as block_pick's.
+__device__ __forceinline__ unsigned warp_pick(const unsigned* hist, int nb, unsigned remaining,
+                                              unsigned& above, unsigned& inbin) {
+  const int lane = threadIdx.x & 31;
+  int top = nb, span = nb;  // the bins [top - span, top) hold it
+  unsigned run = 0;         // the keys in the bins from top up
+  while (true) {
+    const int per = span > 32 ? span / 32 : 1;
+    const int base = top - (lane + 1) * per;
+    const unsigned h = base >= top - span ? bins_sum(hist, base, per) : 0u;
+    const unsigned incl = warp_inclusive_scan(h);
+    const bool here = h > 0 && run + incl >= remaining && run + incl - h < remaining;
+    const int src = __ffs(__ballot_sync(FULL, here)) - 1;
+    const unsigned excl = __shfl_sync(FULL, incl - h, src);
+    if (per == 1) {
+      above = run + excl;
+      inbin = __shfl_sync(FULL, h, src);
+      return (unsigned)(top - 1 - src);
+    }
+    run += excl;
+    top -= src * per;
+    span = per;
+  }
+}
+
+// Zeroes hist[0, n), n a multiple of 4, with the threads [0, threads).
+__device__ __forceinline__ void zero_bins(unsigned* hist, int n, int threads) {
+  for (int i = 4 * (int)threadIdx.x; i < n; i += 4 * threads)
+    *reinterpret_cast<uint4*>(hist + i) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// x: N consecutive values into the lane's online log-sum-exp (m, s) and the
+// first pass's histogram; their keys out.
+template <int BITS, int N>
+__device__ __forceinline__ void first_pass(const float (&x)[N], bool have, float& m, float& s,
+                                           unsigned* hist, uint32_t (&k)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) k[e] = key_of<BITS>(x[e]);
+  if (!have) return;
   float cmax = x[0];
 #pragma unroll
   for (int e = 1; e < N; ++e) cmax = fmaxf(cmax, x[e]);
@@ -452,48 +618,96 @@ __device__ __forceinline__ void read_chunk(const float (&x)[N], int col0, float&
   s = s * rescale(m, nm) + part;
   m = nm;
 #pragma unroll
-  for (int e = 0; e < N; ++e) keys[col0 + e] = order_key(x[e]);
+  for (int e = 0; e < N; ++e) atomicAdd(&hist[k[e] >> (BITS - FIRST_BITS)], 1u);
 }
 
-// IN_SMEM: the row's keys live in dynamic shared memory; else in the
-// block's row of a global scratch buffer (gridDim.x rows of V keys).
-template <typename T, bool IN_SMEM>
-__global__ void __launch_bounds__(RS_THREADS)
+template <typename T>
+__device__ __forceinline__ float load_cached(const T* p);
+template <>
+__device__ __forceinline__ float load_cached(const float* p) {
+  return __ldg(p);
+}
+template <>
+__device__ __forceinline__ float load_cached(const __nv_bfloat16* p) {
+  const uint32_t w = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(w << 16);
+}
+
+// R > 0: rows of at most REG_V elements, their keys kept in shared memory
+// (R chunks a thread at most); R == 0: any row, read again from memory by
+// every later sweep.
+template <typename T, int R>
+__global__ void __launch_bounds__(RS_THREADS, R == 4 ? 6 : 4)
 sample_rows_radix(const T* __restrict__ logits, const float* __restrict__ temp_ptr,
                   float temp_value, long long rows_per_temp,
                   const unsigned long long* __restrict__ seed_ptr, int* __restrict__ pred,
-                  float* __restrict__ conf, uint32_t* __restrict__ scratch, long long rows,
-                  int V, int k) {
-  extern __shared__ uint32_t smem_keys[];
+                  float* __restrict__ conf, long long rows, int V, int k) {
   __shared__ RadixShared sh;
-  uint32_t* keys = IN_SMEM ? smem_keys : scratch + (size_t)blockIdx.x * V;
-  constexpr int VEC = Elem<T>::VEC;
+  extern __shared__ uint4 smem_keys[];  // chunk c's keys in smem_keys[c] when R > 0
+  constexpr int VEC = Elem<T>::VEC, BITS = KeyBits<T>::value;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const unsigned long long seed = *seed_ptr;
   for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
     const T* rp = logits + row * V;
-    // (read first: few values are live across the 64-bit division's call)
-    const float temp = fmaxf(temp_ptr ? temp_ptr[row / rows_per_temp] : temp_value, 1e-10f);
+    RowLayout L;
+    L.head = min((int)(((16 - (reinterpret_cast<uintptr_t>(rp) & 15)) & 15) / sizeof(T)), V);
+    L.nvec = (V - L.head) / VEC;
+    L.rw = (L.nvec + RS_THREADS - 1) / RS_THREADS;
+    L.tail0 = L.head + L.nvec * VEC;
+    const uint4* vp = reinterpret_cast<const uint4*>(rp + L.head);
 
-    // one read of the row: the keys, and an online log-sum-exp per thread
+    // the loads first, then the histogram is zeroed behind them.  Pass 1
+    // takes chunk (warp * rw + j) * 32 + lane: a warp's load is 512
+    // contiguous bytes.
+    const bool has_head = warp == 0 && lane < L.head;
+    const bool has_tail = warp == RS_WARPS - 1 && L.tail0 + lane < V;
+    const float hx = has_head ? Elem<T>::one(rp + lane) : 0.f;
+    const float tx = has_tail ? Elem<T>::one(rp + L.tail0 + lane) : 0.f;
+    uint4 raw[R > 0 ? R : 1];
+#pragma unroll
+    for (int j = 0; j < (R > 0 ? R : 1); ++j) {
+      const int c = (warp * L.rw + j) * 32 + lane;
+      raw[j] = R > 0 && j < L.rw && c < L.nvec ? __ldcs(vp + c) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    zero_bins(sh.hist, HIST_WORDS, RS_THREADS);
+    __syncthreads();
+
+    // pass 1 over the row: the first digit's histogram, the log-sum-exp, the keys
     float m = -INFINITY, s = 0.f;
-    int head = (int)(((16 - (reinterpret_cast<uintptr_t>(rp) & 15)) & 15) / sizeof(T));
-    head = min(head, V);
-    if (tid < head) {
-      const float x[1] = {Elem<T>::one(rp + tid)};
-      read_chunk(x, tid, m, s, keys);
+    {
+      const float x[1] = {hx};
+      uint32_t kk[1];
+      first_pass<BITS>(x, has_head, m, s, sh.hist, kk);
+      if (has_head) sh.head_key[lane] = kk[0];
     }
-    const int nvec = (V - head) / VEC;
-    const uint4* vp = reinterpret_cast<const uint4*>(rp + head);
-    for (int c = tid; c < nvec; c += RS_THREADS) {
-      float x[VEC];
-      Elem<T>::widen(__ldcs(vp + c), x);
-      read_chunk(x, head + c * VEC, m, s, keys);
+    if (R > 0) {
+#pragma unroll
+      for (int j = 0; j < (R > 0 ? R : 1); ++j) {
+        if (j < L.rw) {
+          const int c = (warp * L.rw + j) * 32 + lane;
+          float x[VEC];
+          uint32_t kk[VEC];
+          Elem<T>::widen(raw[j], x);
+          first_pass<BITS>(x, c < L.nvec, m, s, sh.hist, kk);
+          if (c < L.nvec) smem_keys[c] = pack<BITS>(kk);
+        }
+      }
+    } else {
+      for (int j = 0; j < L.rw; ++j) {
+        const int c = (warp * L.rw + j) * 32 + lane;
+        if (c < L.nvec) {
+          float x[VEC];
+          uint32_t kk[VEC];
+          Elem<T>::widen(__ldg(vp + c), x);
+          first_pass<BITS>(x, true, m, s, sh.hist, kk);
+        }
+      }
     }
-    const int tail = head + nvec * VEC + tid;
-    if (tail < V) {
-      const float x[1] = {Elem<T>::one(rp + tail)};
-      read_chunk(x, tail, m, s, keys);
+    {
+      const float x[1] = {tx};
+      uint32_t kk[1];
+      first_pass<BITS>(x, has_tail, m, s, sh.hist, kk);
+      if (has_tail) sh.tail_key[lane] = kk[0];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -503,139 +717,220 @@ sample_rows_radix(const T* __restrict__ logits, const float* __restrict__ temp_p
       s = s * rescale(m, nm) + os * rescale(om, nm);
       m = nm;
     }
-    if (lane == 0) {  // merged by thread 0 at the end: nothing else is live
+    if (lane == 0) {
       sh.red_m[warp] = m;
       sh.red_s[warp] = s;
     }
-    __syncthreads();  // the keys and the warps' (m, s) are stored
+    __syncthreads();  // the histogram and the keys are complete
+    block_pick(sh.hist, 1 << FIRST_BITS, (unsigned)k, sh);
+    constexpr int SHIFT1 = BITS - FIRST_BITS;
+    uint32_t prefix = sh.digit << SHIFT1;  // the kept keys' bits known so far
+    uint32_t pmask = ((1u << FIRST_BITS) - 1u) << SHIFT1;
+    unsigned remaining = (unsigned)k - sh.above;  // kept keys still to find in the bin
+    unsigned inbin = sh.inbin;
 
-    // radix select: the k-th largest key, 8 bits a pass from the top
-    uint32_t prefix = 0, pmask = 0;
-    int remaining = k;  // rank of the k-th key among the keys matching prefix
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      sh.hist[tid] = 0;
-      __syncthreads();
-      for (int base = 0; base < V; base += RS_THREADS) {
-        const int i = base + tid;
-        uint32_t key = 0;
-        bool in = false;
-        if (i < V) {
-          key = keys[i];
-          in = (key & pmask) == prefix;
-        }
-        const unsigned digit = (key >> shift) & (BINS - 1);
-        const unsigned active = __ballot_sync(FULL, in);
-        if (in) {
-          const unsigned peers = __match_any_sync(active, digit);
-          if (lane == __ffs(peers) - 1) atomicAdd(&sh.hist[digit], __popc(peers));
-        }
-      }
-      __syncthreads();
-      // thread t holds bin 255 - t: the scan counts the keys with a digit >= it
-      const unsigned h = sh.hist[BINS - 1 - tid];
-      const unsigned incl = block_inclusive_scan(h, sh);
-      if (incl >= (unsigned)remaining && incl - h < (unsigned)remaining) {
-        sh.prefix = prefix | ((uint32_t)(BINS - 1 - tid) << shift);
-        sh.remaining = remaining - (int)(incl - h);
-      }
-      __syncthreads();
-      prefix = sh.prefix;
-      remaining = sh.remaining;
-      pmask |= (uint32_t)(BINS - 1) << shift;
-    }
-    const uint32_t thr = prefix;   // the k-th largest key
-    const unsigned need = remaining;  // how many keys equal to it are kept
-
-    // warp w owns columns [lo, hi); its equal keys come after those of the
-    // warps before it, so admitting the lowest columns first is a prefix count
-    const int seg = ((V + RS_WARPS - 1) / RS_WARPS + 31) & ~31;
-    const int lo = warp * seg, hi = min(lo + seg, V);
-    unsigned equal = 0;
-    for (int c = lo; c < hi; c += 32) {
-      const int i = c + lane;
-      const bool eq = i < hi && keys[i] == thr;
-      equal += __popc(__ballot_sync(FULL, eq));
-    }
-    if (lane == 0) sh.warp_sum[warp] = equal;
-    __syncthreads();
-    unsigned rank0 = 0;
-    for (int w = 0; w < warp; ++w) rank0 += sh.warp_sum[w];
-
-    // the survivors: noise, score, and the argmax with ties to the lower column
-    float score = -INFINITY;
-    int col = NO_COL;
-    for (int c = lo; c < hi; c += 32) {
-      const int i = c + lane;
-      const uint32_t key = i < hi ? keys[i] : 0u;
-      const bool eq = i < hi && key == thr;
-      const unsigned ballot = __ballot_sync(FULL, eq);
-      const unsigned rank = rank0 + __popc(ballot & ((1u << lane) - 1u));
-      rank0 += __popc(ballot);
-      if ((i < hi && key > thr) || (eq && rank < need)) {
-        const float sc = key_value(key) / temp + gumbel_at(i, row, seed);
-        if (before(sc, i, score, col)) {
-          score = sc;
-          col = i;
-        }
-      }
-    }
+    // The keys at or above the first bin (>= prefix) into the buffer, in
+    // column order: thread t takes the chunks [t * rw, (t + 1) * rw), thread 0
+    // the head before them, the last thread the tail after them; a block scan
+    // of the threads' counts places them.
+    const int c0 = min(tid * L.rw, L.nvec), c1 = min(c0 + L.rw, L.nvec);
+    const int nh = tid == 0 ? L.head : 0;
+    const int nt = tid == RS_THREADS - 1 ? V - L.tail0 : 0;
+    const int nrun = nh + (c1 - c0) * VEC + nt;
+    // R > 0: the i-th element of the thread's run: its column, and its key
+    auto run_col = [&](int i) {
+      return i < nh ? i : i < nrun - nt ? L.head + c0 * VEC + (i - nh) : L.tail0 + (i - nrun + nt);
+    };
+    auto run_key = [&](int i) -> uint32_t {
+      if (i < nh) return sh.head_key[i];
+      if (i >= nrun - nt) return sh.tail_key[i - nrun + nt];
+      return chunk_key<BITS>(smem_keys, c0 + (i - nh) / VEC, (i - nh) % VEC);
+    };
+    // R == 0: f(key, column) over the run in column order, its chunks read
+    // again from memory 16 bytes a load
+    auto for_run = [&](auto&& f) {
+      for (int i = 0; i < nh; ++i) f(sh.head_key[i], i);
+      for (int c = c0; c < c1; ++c) {
+        float x[VEC];
+        Elem<T>::widen(__ldg(vp + c), x);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(FULL, score, off);
-      const int oc = __shfl_xor_sync(FULL, col, off);
-      if (before(os, oc, score, col)) {
-        score = os;
-        col = oc;
+        for (int e = 0; e < VEC; ++e) f(key_of<BITS>(x[e]), L.head + c * VEC + e);
       }
-    }
-    if (lane == 0) {
-      sh.red_score[warp] = score;
-      sh.red_col[warp] = col;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < RS_WARPS; ++w) {
-        if (before(sh.red_score[w], sh.red_col[w], score, col)) {
-          score = sh.red_score[w];
-          col = sh.red_col[w];
+      for (int i = 0; i < nt; ++i) f(sh.tail_key[i], L.tail0 + i);
+    };
+    unsigned met = 0;
+    // R > 0: bit i for the run's element i: the head's, the chunks' (R * VEC
+    // = 32 bits), the tail's
+    unsigned hit_head = 0, hit_chunks = 0, hit_tail = 0;
+    if constexpr (R > 0) {
+      for (int i = 0; i < nh; ++i) hit_head |= (unsigned)(sh.head_key[i] >= prefix) << i;
+      // lanes start at different chunks of their runs (rw * 16 bytes apart),
+      // so that a warp's 16-byte reads fall in different banks
+      const int rot = L.rw > 0 ? ((lane * L.rw) >> 3) % L.rw : 0;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        int jj = j + rot;
+        if (jj >= L.rw) jj -= L.rw;
+        if (j < L.rw && c0 + jj < c1) {
+          uint32_t kk[VEC];
+          unpack<BITS>(smem_keys[c0 + jj], kk);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            hit_chunks |= (unsigned)(kk[e] >= prefix) << (jj * VEC + e);
         }
       }
-      m = sh.red_m[0];
-      s = sh.red_s[0];
-      for (int w = 1; w < RS_WARPS; ++w) {
-        const float om = sh.red_m[w], os = sh.red_s[w];
+      for (int i = 0; i < nt; ++i) hit_tail |= (unsigned)(sh.tail_key[i] >= prefix) << i;
+      met = __popc(hit_head) + __popc(hit_chunks) + __popc(hit_tail);
+    } else {
+      for_run([&](uint32_t key, int) { met += key >= prefix; });
+    }
+    const unsigned incl = block_inclusive_scan(met, sh);
+    if (tid == RS_THREADS - 1) sh.total = incl;
+    unsigned pos = incl - met;
+    if constexpr (R > 0) {
+      const unsigned long long hits = hit_head | (unsigned long long)hit_chunks << nh |
+                                      (unsigned long long)hit_tail << (nrun - nt);
+      for (unsigned long long b = hits; b; b &= b - 1, ++pos) {
+        const int i = __ffsll(b) - 1;
+        if (pos < CAP) {
+          sh.cand_key[pos] = run_key(i);
+          sh.cand_col[pos] = run_col(i);
+        }
+      }
+    } else {
+      for_run([&](uint32_t key, int col) {
+        if (key >= prefix) {
+          if (pos < CAP) {
+            sh.cand_key[pos] = key;
+            sh.cand_col[pos] = col;
+          }
+          ++pos;
+        }
+      });
+    }
+    __syncthreads();
+
+    // The rest of the row is warp 0's: the later passes, the tie admission
+    // and the noise, over the buffer, or over the row when it overflowed.
+    if (warp == 0) {
+      const unsigned total = sh.total;
+      const bool overflow = total > CAP;
+      // f(key, col, have) over the entries in column order, 32 a step
+      auto for_each_entry = [&](auto&& f) {
+        if (!overflow) {
+          for (unsigned i = 0; i < total; i += 32) {
+            const bool have = i + lane < total;
+            f(have ? sh.cand_key[i + lane] : 0u, have ? sh.cand_col[i + lane] : 0, have);
+          }
+        } else {
+          for (int c = 0; c < V; c += 32) {
+            const int col = c + lane;
+            uint32_t key = 0;
+            if (col < L.head) {
+              key = sh.head_key[col];
+            } else if (col >= L.tail0) {
+              if (col < V) key = sh.tail_key[col - L.tail0];
+            } else if constexpr (R > 0) {
+              key = chunk_key<BITS>(smem_keys, (col - L.head) / VEC, (col - L.head) % VEC);
+            } else {
+              key = key_of<BITS>(load_cached(rp + col));
+            }
+            f(key, col, col < V);
+          }
+        }
+      };
+      // later passes over the keys that match the prefix, until the chosen
+      // bin holds exactly the keys still needed or the key is complete
+      for (int shift = SHIFT1; shift > 0 && inbin != remaining;) {
+        const int width = shift < LATER_BITS ? shift : LATER_BITS;
+        shift -= width;
+        const int nb = 1 << width;
+        zero_bins(sh.hist, nb, 32);
+        __syncwarp();
+        for_each_entry([&](uint32_t key, int, bool have) {
+          if (have && (key & pmask) == prefix)
+            atomicAdd(&sh.hist[(key >> shift) & (nb - 1)], 1u);
+        });
+        __syncwarp();
+        unsigned above;
+        const unsigned digit = warp_pick(sh.hist, nb, remaining, above, inbin);
+        __syncwarp();  // the histogram is read before it is zeroed again
+        prefix |= digit << shift;
+        pmask |= (unsigned)(nb - 1) << shift;
+        remaining -= above;
+      }
+
+      // the tied class (key & pmask) == prefix: its first `remaining` in
+      // column order are kept, after the keys above it; the kept draw noise
+      const bool all_tied = inbin == remaining;
+      const float temp = fmaxf(
+          temp_ptr ? temp_ptr[(unsigned)row / (unsigned)rows_per_temp] : temp_value, 1e-10f);
+      unsigned rank = 0;  // tied keys met so far
+      float score = -INFINITY;
+      int col = NO_COL;
+      uint32_t key = 0;
+      for_each_entry([&](uint32_t ek, int ec, bool have) {
+        const uint32_t mk = ek & pmask;
+        const bool tied = have && mk == prefix;
+        const unsigned ties = __ballot_sync(FULL, tied);
+        const bool keep =
+            have && (mk > prefix ||
+                     (tied && (all_tied || rank + __popc(ties & ((1u << lane) - 1u)) < remaining)));
+        rank += __popc(ties);
+        if (keep) {
+          const float sc = value_of<BITS>(ek) / temp + gumbel_at(ec, row, seed);
+          if (before(sc, ec, score, col)) {
+            score = sc;
+            col = ec;
+            key = ek;
+          }
+        }
+      });
+      m = lane < RS_WARPS ? sh.red_m[lane] : -INFINITY;
+      s = lane < RS_WARPS ? sh.red_s[lane] : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float os = __shfl_xor_sync(FULL, score, off);
+        const int oc = __shfl_xor_sync(FULL, col, off);
+        const uint32_t ok = __shfl_xor_sync(FULL, key, off);
+        if (before(os, oc, score, col)) {
+          score = os;
+          col = oc;
+          key = ok;
+        }
+        const float om = __shfl_xor_sync(FULL, m, off);
+        const float osum = __shfl_xor_sync(FULL, s, off);
         const float nm = fmaxf(m, om);
-        s = s * rescale(m, nm) + os * rescale(om, nm);
+        s = s * rescale(m, nm) + osum * rescale(om, nm);
         m = nm;
       }
-      pred[row] = col;
-      conf[row] = expf(key_value(keys[col]) - m - logf(s));
+      if (lane == 0) {
+        pred[row] = col;
+        conf[row] = expf(value_of<BITS>(key) - m - logf(s));
+      }
     }
-    __syncthreads();  // the next row reuses the keys and sh
+    __syncthreads();  // the next row reuses sh
   }
 }
 
 template <typename T>
 int launch_radix(const void* logits, const float* temp_ptr, float temp_value,
                  long long rows_per_temp, const unsigned long long* seed, int* pred, float* conf,
-                 uint32_t* scratch, long long scratch_rows, long long rows, int V, int k,
-                 cudaStream_t stream) {
+                 long long rows, int V, int k, cudaStream_t stream) {
+  constexpr int R = REG_V / Elem<T>::VEC / RS_THREADS;  // chunks a lane of a REG_V row
   const T* x = static_cast<const T*>(logits);
-  if (scratch == nullptr) {
-    const size_t smem = (size_t)V * sizeof(uint32_t);
-    if (smem > ROW_SMEM_MAX) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          sample_rows_radix<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const int blocks = (int)(rows < MAX_BLOCKS ? rows : MAX_BLOCKS);
-    sample_rows_radix<T, true><<<blocks, RS_THREADS, smem, stream>>>(
-        x, temp_ptr, temp_value, rows_per_temp, seed, pred, conf, nullptr, rows, V, k);
-  } else {  // a row too long for shared memory: its keys go to the scratch row
-    const int blocks = (int)(rows < scratch_rows ? rows : scratch_rows);
-    sample_rows_radix<T, false><<<blocks, RS_THREADS, 0, stream>>>(
-        x, temp_ptr, temp_value, rows_per_temp, seed, pred, conf, scratch, rows, V, k);
+  const int blocks = (int)(rows < MAX_BLOCKS ? rows : MAX_BLOCKS);
+  if (V <= REG_V) {
+    const int smem = R * RS_THREADS * (int)sizeof(uint4);  // the row's keys
+    const cudaError_t err = cudaFuncSetAttribute(
+        sample_rows_radix<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    sample_rows_radix<T, R><<<blocks, RS_THREADS, smem, stream>>>(
+        x, temp_ptr, temp_value, rows_per_temp, seed, pred, conf, rows, V, k);
+  }
+  else {
+    sample_rows_radix<T, 0><<<blocks, RS_THREADS, 0, stream>>>(
+        x, temp_ptr, temp_value, rows_per_temp, seed, pred, conf, rows, V, k);
   }
   return (int)cudaGetLastError();
 }
@@ -647,9 +942,9 @@ int launch_radix(const void* logits, const float* temp_ptr, float temp_value,
 extern "C" int sample_fwd(const void* logits, int is_bf16, const void* temp_ptr, float temp_value,
                           long long rows_per_temp, const void* seed, void* pred, void* conf,
                           long long rows, int V, int k, void* stream) {
-  if (rows <= 0 || V <= 0 || k < 1 || k > 16 || k > V || rows_per_temp < 1)
+  if (rows <= 0 || V <= 0 || k < 1 || k > 5 || k > V || rows_per_temp < 1)
     return (int)cudaErrorInvalidValue;
-  const int list = k == 1 ? 1 : k <= 5 ? 5 : 16;
+  const int list = k == 1 ? 1 : 5;
   const float* tp = static_cast<const float*>(temp_ptr);
   const unsigned long long* sp = static_cast<const unsigned long long*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -661,25 +956,21 @@ extern "C" int sample_fwd(const void* logits, int is_bf16, const void* temp_ptr,
                        static_cast<float*>(conf), rows, V, k, st);
 }
 
-// k > 16: one block a row, radix select.  Same arguments and result as
-// sample_fwd, for any 1 <= k <= V, and a key buffer: scratch null keeps each
-// row's keys in shared memory (V * 4 bytes <= 200 KB); else scratch holds
-// scratch_rows rows of V 32-bit keys, one per block.
+// K3r: one block a row, radix select.  Same arguments and result as
+// sample_fwd, for any 1 <= k <= V, any V and fewer than 2^31 rows.
 extern "C" int sample_radix_fwd(const void* logits, int is_bf16, const void* temp_ptr,
                                 float temp_value, long long rows_per_temp, const void* seed,
-                                void* pred, void* conf, void* scratch, long long scratch_rows,
-                                long long rows, int V, int k, void* stream) {
-  if (rows <= 0 || V <= 0 || k < 1 || k > V || rows_per_temp < 1 ||
-      (scratch != nullptr && scratch_rows < 1))
+                                void* pred, void* conf, long long rows, int V, int k,
+                                void* stream) {
+  if (rows <= 0 || rows >= (1ll << 31) || V <= 0 || k < 1 || k > V || rows_per_temp < 1)
     return (int)cudaErrorInvalidValue;
   const float* tp = static_cast<const float*>(temp_ptr);
   const unsigned long long* sp = static_cast<const unsigned long long*>(seed);
-  uint32_t* keys = static_cast<uint32_t*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_radix<__nv_bfloat16>(logits, tp, temp_value, rows_per_temp, sp,
-                                       static_cast<int*>(pred), static_cast<float*>(conf), keys,
-                                       scratch_rows, rows, V, k, st);
+                                       static_cast<int*>(pred), static_cast<float*>(conf), rows,
+                                       V, k, st);
   return launch_radix<float>(logits, tp, temp_value, rows_per_temp, sp, static_cast<int*>(pred),
-                             static_cast<float*>(conf), keys, scratch_rows, rows, V, k, st);
+                             static_cast<float*>(conf), rows, V, k, st);
 }

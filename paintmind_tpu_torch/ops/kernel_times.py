@@ -1,10 +1,12 @@
-"""Device times of the hand-written VQ lookup (K2) and sampling head (K3)
-through their wrappers, for comparing two checkouts, or one checkout with
-and without a part of a kernel, in one run on one card:
+"""Device times of the hand-written VQ lookup (K2), sampling head (K3, a
+warp a row) and its radix-select kernel (K3r) through their wrappers, for
+comparing two checkouts, or one checkout with and without a part of a
+kernel, in one run on one card:
 
     python3 paintmind_tpu_torch/ops/kernel_times.py                # this checkout
     python3 paintmind_tpu_torch/ops/kernel_times.py --root DIR     # another one
     python3 paintmind_tpu_torch/ops/kernel_times.py --define K3_NO_SELECT
+    python3 paintmind_tpu_torch/ops/kernel_times.py --root DIR --kernels K3r
 
 ``--define`` compiles the kernels with a macro that cuts a part out
 (``K3_NO_SELECT``: no top-k lists; ``K3_NO_EXP``: no exp and sum;
@@ -28,6 +30,8 @@ def main():
                         help='checkout whose paintmind_tpu_torch is timed')
     parser.add_argument('--define', action='append', default=[],
                         help='macro to compile the kernels with')
+    parser.add_argument('--kernels', nargs='+', default=['K2', 'K3', 'K3r'],
+                        choices=['K2', 'K3', 'K3r'], help='kernels to time')
     args = parser.parse_args()
     sys.path[0] = args.root  # not this directory: its modules are the package's
     import torch
@@ -61,20 +65,30 @@ def main():
         torch.randn(8192, 32, device='cuda', generator=g), dim=-1)
     z = torch.nn.functional.normalize(
         torch.randn(8192, 32, device='cuda', generator=g), dim=-1)
-    for t in (8192, 1024):
+    for t in (8192, 1024) if 'K2' in args.kernels else ():
         zt = z[:t].contiguous()
         ms = device_ms(lambda: vq.fused_nearest_codes(zt, e))
         print(f'K2 T={t} C=8192 D=32 fp32: {ms:.4f} ms = '
               f'{2 * t * 8192 * 32 / ms / 1e9:.2f} TFLOP/s', flush=True)
     logits = torch.randn(8192, 8192, device='cuda', generator=g) * 3
-    for what, lg in (('bf16 T=8192', logits.bfloat16()), ('fp32 T=8192', logits),
-                     ('bf16 T=1024', logits[:1024].bfloat16())):
-        for k in (5, 1):
-            ms = device_ms(lambda: sm.fused_gumbel_topk_sample(
-                lg, 1.0, k, generator=g))
-            print(f'K3 {what} V=8192 k={k}: {ms:.4f} ms = '
-                  f'{lg.numel() * lg.element_size() / ms / 1e6:.0f} GB/s',
-                  flush=True)
+    runs = []  # k > 16 is K3r's in every checkout
+    if 'K3' in args.kernels:
+        runs += [('K3', what, lg, k) for what, lg in (
+            ('bf16 T=8192', logits.bfloat16()), ('fp32 T=8192', logits),
+            ('bf16 T=1024', logits[:1024].bfloat16())) for k in (5, 1)]
+    if 'K3r' in args.kernels:
+        runs += [('K3r', 'bf16 T=8192', logits.bfloat16(), k)
+                 for k in (32, 17, 64, 256)]
+        runs.append(('K3r', 'fp32 T=8192', logits, 32))
+        # rows longer than 8192, which K3r reads again from memory
+        runs += [('K3r', 'bf16 T=8192', (torch.randn(
+            8192, v, device='cuda', generator=g) * 3).bfloat16(), 32)
+            for v in (20000, 60000)]
+    for name, what, lg, k in runs:
+        ms = device_ms(lambda: sm.fused_gumbel_topk_sample(lg, 1.0, k, generator=g))
+        print(f'{name} {what} V={lg.shape[-1]} k={k}: {ms:.4f} ms = '
+              f'{lg.numel() * lg.element_size() / ms / 1e6:.0f} GB/s',
+              flush=True)
 
 
 if __name__ == '__main__':

@@ -22,14 +22,19 @@ tournaments under the total order (value descending, column ascending),
 which is exactly ``topk_keep_mask``, and the noise is drawn for the k
 survivors alone.  There is no barrier and no shared memory.
 
-Lists that long do not fit in registers past k = 16, so ``k > 16`` (any k up
-to V) goes to a second kernel in the same source: one block a row, the row's
-order-preserving 32-bit keys in shared memory (in a scratch row in device
-memory when the row is longer than 51200), a radix select of the k-th
-key (four 8-bit digit passes), the keys equal to it admitted lowest column
-first by a block prefix count, and the same noise at the survivors.  It is
-bound by the same bytes.  The wrapper picks the kernel by k; each counts its
-own launches.  ``sample_radix`` is that kernel's selection on the CPU.
+Longer lists cost more than a radix select, so larger k (any k up to V)
+goes to a second kernel in the same source (K3r): one block a row, a
+radix select on order-preserving integer keys (16-bit for bf16, 32-bit for
+fp32).  One read of the row counts the keys' top 11 bits and keeps the keys
+in shared memory (rows longer than 8192 are read again from memory); one
+sweep writes the keys at or above the chosen bin into a 1024-entry buffer
+in column order; one warp then runs the later passes (bf16: 5 bits; fp32: 11
+and 10), admits the keys tied at the threshold lowest column first and
+draws the noise at the survivors, over the buffer, or over the row again
+when it overflows (mass ties).  It is bound by the same bytes.  The wrapper
+picks the kernel by k: the radix kernel above ``MAX_K`` = 5 (on an H100 it
+took a quarter of the time of 16-entry lists at k = 6 and 16); each counts
+its own launches.  ``sample_radix`` is that kernel's algorithm on the CPU.
 
 Randomness: Philox 4x32-10 under a 64-bit per-call seed drawn from the
 caller's ``torch.Generator``, at counter (column, row low, row high, 0), so
@@ -49,17 +54,18 @@ import torch
 
 from . import _build
 
-# kernel launches so far (k <= MAX_K, k > MAX_K); chip_smoke.py resets, reads
+# kernel launches so far (K3, K3r); chip_smoke.py resets and reads them
 launches = 0
 launches_radix = 0
 
 NEG_INF = -1e30
-MAX_K = 16                  # the kernel's longest per-lane list
-LIST_SIZES = (1, 5, 16)     # list lengths the kernel is compiled for
+MAX_K = 5                   # the kernel's longest per-lane list; the radix
+                            # kernel takes every larger k
+LIST_SIZES = (1, 5)         # list lengths the kernel is compiled for
 UNROLL = 4                  # 16-byte chunks a lane has in flight (one group)
-RADIX_WARPS = 8             # warps of the k > MAX_K kernel's block
-RADIX_ROW_SMEM_MAX = 200 * 1024  # bytes of keys a block keeps in shared memory
-RADIX_SCRATCH_ROWS = 1024   # blocks (scratch key rows) when a row is longer
+RADIX_FIRST_BITS = 11       # the radix kernel's first digit: the key's top bits
+RADIX_LATER_BITS = 11       # the widest digit of a later pass
+RADIX_CAP = 1024            # entries of its buffer
 _fns = {}
 
 
@@ -331,59 +337,79 @@ def sample_streamed(logits, temperature, k, noise, *, vec=None, misalign=0):
             torch.from_numpy(keep).reshape(logits.shape))
 
 
-def order_keys(x):
-    """The k > MAX_K kernel's keys: fp32 numpy -> uint32 numpy that order as
-    the values do, with -0 and +0 on one key."""
+def order_keys(x, bits=32):
+    """The radix kernel's keys: fp32 numpy -> uint32 numpy that order as
+    the values do, with -0 and +0 on one key.  ``bits=16``: the top half,
+    the kernel's key for bf16 values (whose low half is fixed by the sign)."""
     u = np.where(x == 0, np.float32(0), x).astype(np.float32).view(np.uint32)
-    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+    keys = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+    return keys >> np.uint32(32 - bits)
 
 
-def _radix_row(x, noise, temp, k):
-    """One row through the k > MAX_K kernel's selection.  x, noise: (V,)
-    fp32 numpy.  Returns (pred, conf, kept columns)."""
-    v = x.shape[0]
-    keys = order_keys(x)
-    prefix, pmask, remaining = 0, 0, k
-    for shift in (24, 16, 8, 0):  # one 8-bit digit a pass, from the top
-        match = (keys & np.uint32(pmask)) == prefix
-        hist = np.bincount((keys[match] >> shift) & 255, minlength=256)
-        incl = np.cumsum(hist[::-1])  # thread t scans bin 255 - t
-        t = int(np.argmax(incl >= remaining))
-        remaining -= int(incl[t] - hist[255 - t])
-        prefix |= (255 - t) << shift
-        pmask |= 255 << shift
-    thr, need = np.uint32(prefix), remaining
-    # warp w owns a run of columns; equal keys are admitted in column order
-    # after those of the runs before it, by ballot within a 32-column step
-    per_warp = -(-v // RADIX_WARPS)
-    seg = -(-per_warp // 32) * 32
-    kept = []
-    rank = 0
-    for lo in range(0, v, seg):
-        for c in range(lo, min(lo + seg, v), 32):
-            cols = np.arange(c, min(c + 32, lo + seg, v))
-            eq = keys[cols] == thr
-            ranks = rank + np.cumsum(eq) - eq
-            rank += int(eq.sum())
-            kept.extend(cols[(keys[cols] > thr) | (eq & (ranks < need))])
-    kept = np.asarray(kept, np.int64)
+def _radix_pick(hist, remaining):
+    """The bin that holds the ``remaining``-th largest counted key, the
+    bins taken from the top: (bin, count above it, count in it)."""
+    incl = np.cumsum(hist[::-1])
+    b = len(hist) - 1 - int(np.argmax(incl >= remaining))
+    return b, int(incl[len(hist) - 1 - b] - hist[b]), int(hist[b])
+
+
+def _radix_row(x, noise, temp, k, bits):
+    """One row through the radix kernel.  x, noise: (V,) fp32 numpy; bits:
+    key width (16 for bf16 values).  Returns (pred, conf, kept columns,
+    whether the buffer overflowed)."""
+    keys = order_keys(x, bits).astype(np.int64)
+    # pass 1: the first digit over the row
+    shift = bits - RADIX_FIRST_BITS
+    b, above, inbin = _radix_pick(
+        np.bincount(keys >> shift, minlength=1 << RADIX_FIRST_BITS), k)
+    prefix, pmask = b << shift, ((1 << RADIX_FIRST_BITS) - 1) << shift
+    remaining = k - above
+    # the keys at or above the bin into the buffer, in column order; when
+    # they overflow it, every later step runs over the row again
+    cols = np.flatnonzero(keys >= prefix)
+    overflow = len(cols) > RADIX_CAP
+    if overflow:
+        cols = np.arange(len(x))
+    # later passes over the keys matching the prefix, until the chosen bin
+    # holds exactly the keys still needed or the key is complete
+    while shift > 0 and inbin != remaining:
+        width = min(RADIX_LATER_BITS, shift)
+        shift -= width
+        kk = keys[cols]
+        match = kk[(kk & pmask) == prefix]
+        d, above, inbin = _radix_pick(np.bincount(
+            (match >> shift) & ((1 << width) - 1), minlength=1 << width),
+            remaining)
+        prefix |= d << shift
+        pmask |= ((1 << width) - 1) << shift
+        remaining -= above
+    # the tied class admitted lowest column first (cols is in column order)
+    masked = keys[cols] & pmask
+    kept = np.sort(np.concatenate([cols[masked > prefix],
+                                   cols[masked == prefix][:remaining]]))
     score = x[kept] / np.float32(temp) + noise[kept]
     best = kept[np.argmax(score)]  # first, so the lower column, on a tie
     m = x.max()
     s = np.exp2((x - m) * _LOG2E).sum(dtype=np.float32)
-    return best, np.exp(x[best] - m - np.log(s), dtype=np.float32), kept
+    return (best, np.exp(x[best] - m - np.log(s), dtype=np.float32), kept,
+            overflow)
 
 
-def sample_radix(logits, temperature, k, noise):
-    """The k > MAX_K kernel's algorithm on the CPU: order-preserving keys,
-    four 8-bit radix passes to the k-th key, the equal keys admitted lowest
-    column first over the warps' runs of columns, the argmax of value / temp
-    + noise at the survivors (the lower column on a tie).  Any 1 <= k <= V.
-    Returns (pred int32, conf fp32, keep bool (..., V))."""
+def sample_radix(logits, temperature, k, noise, *, with_overflow=False):
+    """The radix kernel's algorithm on the CPU: order-preserving keys (16-bit
+    for bf16 logits, 32-bit for fp32), the first 11-bit pass over the row,
+    the keys at or above its bin into the buffer in column order, the later
+    passes (5 bits; or 11 and 10) over the buffer or, when it overflows, the
+    row, the tied keys admitted lowest column first, the argmax of value /
+    temp + noise at the survivors (the lower column on a tie).  Any 1 <= k
+    <= V.  Returns (pred int32, conf fp32, keep bool (..., V)) and, with
+    ``with_overflow``, whether each row's buffer overflowed (bool (...,))."""
     shape = logits.shape[:-1]
     v = logits.shape[-1]
     if not 1 <= k <= v:
         raise ValueError(f'top-k {k} out of range for {v} classes')
+    bits = 16 if logits.dtype == torch.bfloat16 else 32
     x = logits.detach().float().reshape(-1, v).numpy()
     g = noise.detach().float().reshape(-1, v).numpy()
     temps = torch.clamp(_row_temperatures(temperature, shape, 'cpu'),
@@ -391,27 +417,29 @@ def sample_radix(logits, temperature, k, noise):
     pred = np.zeros(x.shape[0], np.int32)
     conf = np.zeros(x.shape[0], np.float32)
     keep = np.zeros(x.shape, bool)
+    overflow = np.zeros(x.shape[0], bool)
     for r in range(x.shape[0]):
-        pred[r], conf[r], kept = _radix_row(x[r], g[r], temps[r], k)
+        pred[r], conf[r], kept, overflow[r] = _radix_row(
+            x[r], g[r], temps[r], k, bits)
         keep[r, kept] = True
-    return (torch.from_numpy(pred).reshape(shape),
-            torch.from_numpy(conf).reshape(shape),
-            torch.from_numpy(keep).reshape(logits.shape))
+    out = (torch.from_numpy(pred).reshape(shape),
+           torch.from_numpy(conf).reshape(shape),
+           torch.from_numpy(keep).reshape(logits.shape))
+    if with_overflow:
+        out += (torch.from_numpy(overflow).reshape(shape),)
+    return out
 
 
 def _kernel(name):
     """The C entry point ``name`` of the sampling library (``sample_fwd`` for
-    k <= MAX_K, ``sample_radix_fwd`` above, which also takes a key scratch
-    buffer and its row count), with its argument types."""
+    k <= MAX_K, ``sample_radix_fwd`` above; both take the same arguments),
+    with its argument types."""
     if name not in _fns:
         fn = getattr(_build.load('sampling'), name)
-        scratch = ([ctypes.c_void_p, ctypes.c_longlong]
-                   if name == 'sample_radix_fwd' else [])
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, *scratch,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -422,9 +450,17 @@ def fused_gumbel_topk_sample(logits, temperature, k=5, *, generator=None):
     ``generator``) on a CPU tensor.  logits: (..., V) fp32 or bf16,
     contiguous; temperature: scalar or per-sample (B,) (B =
     logits.shape[0]), clamped at 1e-10; any 1 <= k <= V, as the JAX
-    function takes: the warp-a-row kernel for k <= 16, the block-a-row
+    function takes: the warp-a-row kernel up to ``MAX_K``, the block-a-row
     radix-select kernel above.  Returns (pred int32 (...,), conf fp32
     (...,))."""
+    return _fused_sample(logits, temperature, k, generator, k > MAX_K)
+
+
+def _fused_sample(logits, temperature, k, generator, radix):
+    """``fused_gumbel_topk_sample`` on the kernel ``radix`` names: the
+    radix-select kernel (any k) or the warp-a-row one (k <= MAX_K).  Both
+    give the same pred on the same seed; ``chip_smoke.py`` holds them
+    against each other at a k both take."""
     v = logits.shape[-1]
     if not 1 <= k <= v:
         raise ValueError(f'top-k {k} out of range for {v} classes')
@@ -465,21 +501,17 @@ def fused_gumbel_topk_sample(logits, temperature, k=5, *, generator=None):
     args = [logits.data_ptr(), int(logits.dtype == torch.bfloat16),
             None if temp is None else temp.data_ptr(), temp_value,
             rows_per_temp, seed.data_ptr(), pred.data_ptr(), conf.data_ptr()]
-    if k <= MAX_K:
-        name = 'sample_fwd'
-    else:
-        name, scratch = 'sample_radix_fwd', None
-        if v * 4 > RADIX_ROW_SMEM_MAX:  # the row's keys do not fit on chip
-            scratch = torch.empty((min(t, RADIX_SCRATCH_ROWS), v),
-                                  dtype=torch.int32, device=logits.device)
-        args += [None if scratch is None else scratch.data_ptr(),
-                 0 if scratch is None else scratch.shape[0]]
+    if not radix and k > MAX_K:
+        raise ValueError(f'top-k {k}: the warp-a-row kernel keeps at most {MAX_K}')
+    name = 'sample_radix_fwd' if radix else 'sample_fwd'
+    if radix and t >= 2 ** 31:
+        raise ValueError(f'{t} rows: the radix kernel takes fewer than 2**31')
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     with torch.cuda.device(logits.device):
         err = _kernel(name)(*args, t, v, k, stream)
     _build.check(err, 'sampling')
-    if k <= MAX_K:
-        launches += 1
-    else:
+    if radix:
         launches_radix += 1
+    else:
+        launches += 1
     return pred, conf

@@ -255,7 +255,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
                                 torch.empty(8, 32, device='meta'))
     with pytest.raises(ValueError):
         tsm.fused_gumbel_topk_sample(torch.empty(4, 8, device='meta'), 1.0)
-    # any 1 <= k <= V: k > 16 goes to the radix-select kernel, so only k
+    # any 1 <= k <= V: k > MAX_K goes to the radix-select kernel, so only k
     # outside the row is refused (before any device check)
     for k in (0, 65):
         with pytest.raises(ValueError, match='out of range'):
@@ -265,9 +265,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
             tsm.sample_radix(torch.zeros(4, 64), 1.0, k, torch.zeros(4, 64))
     with pytest.raises(ValueError, match='device'):
         tsm.fused_gumbel_topk_sample(torch.empty(4, 64, device='meta'), 1.0, 17)
-    # the warp-a-row kernel's per-lane lists hold at most 16
-    with pytest.raises(ValueError, match='at most 16'):
-        tsm.sample_streamed(torch.zeros(4, 64), 1.0, 17, torch.zeros(4, 64))
+    # the warp-a-row kernel's per-lane lists hold at most 5
+    with pytest.raises(ValueError, match='at most 5'):
+        tsm.sample_streamed(torch.zeros(4, 64), 1.0, 6, torch.zeros(4, 64))
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +352,7 @@ def _stream_cases(rng):
     return cases
 
 
-@pytest.mark.parametrize('k', [1, 3, 5, 16])
+@pytest.mark.parametrize('k', [1, 3, 4, 5])
 @pytest.mark.parametrize('vec,misalign', [(8, 0), (4, 0), (8, 3)])
 def test_sample_streamed_keeps_the_topk_mask(k, vec, misalign):
     """The kernel's selection (per-lane sorted lists, the shared bound, the
@@ -371,7 +371,7 @@ def test_sample_streamed_keeps_the_topk_mask(k, vec, misalign):
 
 
 @pytest.mark.parametrize('temperature', [1e-10, 0.7, 'per-sample'])
-@pytest.mark.parametrize('k', [1, 5, 7])
+@pytest.mark.parametrize('k', [1, 3, 5])
 def test_sample_streamed_matches_plain_and_jax_math(temperature, k):
     """The kernel's algorithm on the kernel's own noise (``philox_gumbel``)
     against ``gumbel_topk_sample_plain`` and against the JAX kernel's
@@ -402,7 +402,7 @@ def test_sample_streamed_matches_plain_and_jax_math(temperature, k):
 
 
 # ---------------------------------------------------------------------------
-# K3's k > 16 kernel, block for block (sample_radix)
+# K3r, K3's radix-select kernel, pass for pass (sample_radix)
 # ---------------------------------------------------------------------------
 
 def _radix_cases(rng):
@@ -438,8 +438,8 @@ def test_order_keys_order_as_the_values():
 
 @pytest.mark.parametrize('k', [17, 32, 100, 'V'])
 def test_sample_radix_keeps_the_topk_mask(k):
-    """The k > 16 kernel's selection (radix passes over the keys, the equal
-    keys admitted lowest column first over the warps' runs) keeps exactly
+    """The radix kernel's selection (radix passes over the keys, the equal
+    keys admitted lowest column first) keeps exactly
     ``topk_keep_mask``'s entries, and so the JAX mask's, with ties: exact."""
     rng = np.random.default_rng(17)
     cases, wide = _radix_cases(rng)
@@ -456,7 +456,7 @@ def test_sample_radix_keeps_the_topk_mask(k):
 @pytest.mark.parametrize('temperature', [1e-10, 0.7, 'per-sample'])
 @pytest.mark.parametrize('k', [17, 32, 100, 'V'])
 def test_sample_radix_matches_plain_and_jax_math(temperature, k):
-    """The k > 16 kernel's algorithm on the kernel's own noise
+    """The radix kernel's algorithm on the kernel's own noise
     (``philox_gumbel``) against ``gumbel_topk_sample_plain`` and the JAX
     kernel's arithmetic: pred equal, conf within 1e-6."""
     rng = np.random.default_rng(23)
@@ -482,6 +482,104 @@ def test_sample_radix_matches_plain_and_jax_math(temperature, k):
         np.testing.assert_array_equal(pred.numpy(), jax_pred)
         assert float((conf - plain_conf).abs().max()) <= 1e-6
         assert float(np.abs(conf.numpy() - jax_conf).max()) <= 1e-6
+
+
+def test_order_keys_16_bit_keys_order_as_bf16_values():
+    """The radix kernel's 16-bit keys (bf16 values): the top half of the
+    32-bit key, ordered as the values, +0 and -0 on one key, every bf16
+    value (finite or not, NaN aside) on its own key."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    x = (bits << 16).view(np.float32)
+    x = x[~np.isnan(x)]
+    keys = tsm.order_keys(x, 16)
+    assert keys.max() < 1 << 16
+    np.testing.assert_array_equal(keys, tsm.order_keys(x) >> 16)
+    order = np.argsort(x, kind='stable')
+    assert (np.diff(keys[order].astype(np.int64)) >= 0).all()
+    assert len(np.unique(keys)) == len(np.unique(x))  # +0 and -0 share one
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+def test_sample_radix_overflow_branch(dtype):
+    """Integer logits 0-3 across 4096 columns: at k = 1500 the first
+    pass's bin (the value 2) puts ~2048 keys at or above it, more than the
+    buffer's 1024, so every row takes the overflow branch (the later passes,
+    the tie admission and the noise over the row again); at k = 17 and 32
+    (the value 3, ~1024 keys) a row overflows or not by its draw.  It keeps
+    exactly the JAX mask and samples as the plain version and the JAX math,
+    pred equal and conf within 1e-6, at every k."""
+    rng = np.random.default_rng(41)
+    l = rng.integers(0, 4, (6, 4096)).astype(np.float32)
+    lt = torch.from_numpy(l)
+    if dtype == 'bf16':
+        lt = lt.to(torch.bfloat16)
+    seen = []
+    for k in (17, 32, 1500):
+        noise = tsm.philox_gumbel(int(rng.integers(1 << 62)), l.shape)
+        pred, conf, keep, overflow = tsm.sample_radix(
+            lt, 0.7, k, noise, with_overflow=True)
+        seen.append(overflow.numpy())
+        np.testing.assert_array_equal(
+            keep.numpy(), np.asarray(jsm.topk_keep_mask(jnp.asarray(l), k)))
+        plain_pred, plain_conf = tsm.gumbel_topk_sample_plain(lt, 0.7, k, noise)
+        jax_pred, jax_conf = _jax_sample_math(l, np.float32(0.7), noise.numpy(), k)
+        np.testing.assert_array_equal(pred.numpy(), plain_pred.numpy())
+        np.testing.assert_array_equal(pred.numpy(), jax_pred)
+        assert float((conf - plain_conf).abs().max()) <= 1e-6
+        assert float(np.abs(conf.numpy() - jax_conf).max()) <= 1e-6
+    assert seen[-1].all()
+
+
+@pytest.mark.parametrize('k', [17, 32, 256])
+def test_sample_radix_16_bit_key_plan(k):
+    """bf16 logits through the 16-bit key plan (an 11-bit first digit, then
+    5 bits over the buffer): the same kept set, pred and conf as the 32-bit
+    plan on the same values in fp32, exactly the JAX mask, and pred equal to
+    the plain version's and the JAX math's; the Gaussian rows stay in the
+    buffer."""
+    rng = np.random.default_rng(k)
+    l = np.array(jnp.asarray(rng.standard_normal((8, 4096)) * 3,
+                             jnp.bfloat16).astype(jnp.float32))
+    l[:2, ::3] = l[:2, 5:6]  # long runs of one value: ties at the threshold
+    bf = torch.from_numpy(l).to(torch.bfloat16)
+    noise = tsm.philox_gumbel(int(rng.integers(1 << 62)), l.shape)
+    p16, c16, k16, o16 = tsm.sample_radix(bf, 1.0, k, noise,
+                                          with_overflow=True)
+    p32, c32, k32 = tsm.sample_radix(torch.from_numpy(l), 1.0, k, noise)
+    assert not o16[2:].any()  # the Gaussian rows stay in the buffer
+    np.testing.assert_array_equal(k16.numpy(), k32.numpy())
+    np.testing.assert_array_equal(
+        k16.numpy(), np.asarray(jsm.topk_keep_mask(jnp.asarray(l), k)))
+    assert torch.equal(p16, p32) and torch.equal(c16, c32)
+    plain_pred, _ = tsm.gumbel_topk_sample_plain(bf, 1.0, k, noise)
+    jax_pred, _ = _jax_sample_math(l, np.float32(1.0), noise.numpy(), k)
+    np.testing.assert_array_equal(p16.numpy(), plain_pred.numpy())
+    np.testing.assert_array_equal(p16.numpy(), jax_pred)
+
+
+@pytest.mark.parametrize('k', [1, 3, 5])
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+def test_sample_radix_equals_sample_streamed(k, dtype):
+    """Both kernels compute one function: for k <= MAX_K the radix kernel's
+    algorithm gives the warp-a-row kernel's pred, bit for bit, on the same
+    Philox noise, and conf within 1e-6, on Gaussian rows, mass ties and
+    ragged rows (the warp kernel's also off the 16-byte grid)."""
+    rng = np.random.default_rng(100 + k)
+    cases = [(rng.standard_normal((4, 4096)) * 3).astype(np.float32),
+             rng.integers(0, 4, (4, 1000)).astype(np.float32),
+             (rng.standard_normal((4, 500)) * 3).astype(np.float32)]
+    for l in cases:
+        lt = torch.from_numpy(l)
+        if dtype == 'bf16':
+            lt = lt.to(torch.bfloat16)
+        noise = tsm.philox_gumbel(int(rng.integers(1 << 62)), l.shape)
+        pred, conf, keep = tsm.sample_radix(lt, 0.8, k, noise)
+        for misalign in (0, 3):
+            spred, sconf, skeep = tsm.sample_streamed(lt, 0.8, k, noise,
+                                                      misalign=misalign)
+            assert torch.equal(pred, spred)
+            assert torch.equal(keep, skeep)
+            assert float((conf - sconf).abs().max()) <= 1e-6
 
 
 # ---------------------------------------------------------------------------
