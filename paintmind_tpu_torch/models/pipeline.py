@@ -54,6 +54,7 @@ from ..config import Config, ver2cfg
 from ..nn.core import rand_rows
 from ..ops.sampling import fused_gumbel_topk_sample
 from ..ops.sampling import gumbel_noise as _gumbel
+from ..utils.profiling import annotate
 from . import vqmodel as vm
 from .moe_transformer import MoECondTransformer, MoECondTransformerConfig
 from .quantize import l2norm
@@ -193,22 +194,24 @@ def pipeline_loss(pipe, img, context, mask_ratio, *, generator=None,
     (detached; ``expert load`` the (E,) top-1 fractions), ``{}`` for the
     dense model.  ``transformer_apply(transformer, x, context, ...)`` runs
     the transformer in its place (the pipeline-parallel apply)."""
-    with torch.no_grad():
+    with torch.no_grad(), annotate('pm.train.encode'):
         z_q, _, ids = pipe.vqgan.encode(img, backend=backend,
                                         vq_backend=vq_backend)
-    x, mask = random_masking(z_q.detach(), pipe.mask_token, mask_ratio,
-                             generator=generator, noise=noise)
-    run = (pipe.transformer if transformer_apply is None else
-           functools.partial(transformer_apply, pipe.transformer))
-    out = run(x, context, backend=backend, generator=generator, remat=remat)
-    cfg = pipe.config
-    if not cfg.num_experts:
-        loss = masked_ce_loss(out, ids, mask)
-        return (loss, {}) if return_aux else loss
-    logits, aux = out
-    loss = (masked_ce_loss(logits, ids, mask)
-            + cfg.lb_weight * aux['lb_loss']
-            + cfg.zloss_weight * aux['router_z'])
+    with annotate('pm.train.forward'):
+        x, mask = random_masking(z_q.detach(), pipe.mask_token, mask_ratio,
+                                 generator=generator, noise=noise)
+        run = (pipe.transformer if transformer_apply is None else
+               functools.partial(transformer_apply, pipe.transformer))
+        out = run(x, context, backend=backend, generator=generator,
+                  remat=remat)
+        cfg = pipe.config
+        if not cfg.num_experts:
+            loss = masked_ce_loss(out, ids, mask)
+            return (loss, {}) if return_aux else loss
+        logits, aux = out
+        loss = (masked_ce_loss(logits, ids, mask)
+                + cfg.lb_weight * aux['lb_loss']
+                + cfg.zloss_weight * aux['router_z'])
     if not return_aux:
         return loss
     # lb_loss -> 'lb loss', ...: the names the JAX package's trainer logs
@@ -344,48 +347,56 @@ def sample_step(pipe, ids, *, context, n_masked, temperature, topk,
     logits, seeded from ``generator``); 'auto' = fused for CUDA logits,
     exact for CPU logits."""
     b, l = ids.shape
-    tokens = ids_to_tokens(pipe, ids, cfg)
-    logits = _transformer_logits(pipe, tokens, context, guidance_scale,
-                                 cfg=cfg, backend=backend, dtype=dtype,
-                                 neg_context=neg_context)
+    with annotate('pm.step.logits'):
+        tokens = ids_to_tokens(pipe, ids, cfg)
+        logits = _transformer_logits(pipe, tokens, context, guidance_scale,
+                                     cfg=cfg, backend=backend, dtype=dtype,
+                                     neg_context=neg_context)
     if sampler == 'auto':
         sampler = 'fused' if logits.is_cuda else 'exact'
-    is_mask = ids == cfg.mask_token_id
-    if sampler == 'fused':
-        if noise is not None:
-            raise ValueError('noise is an input of the exact sampler; the '
-                             'fused sampler draws its own from generator')
-        pred_ids, conf = fused_gumbel_topk_sample(logits, temperature, topk,
-                                                  generator=generator)
-        pred_ids = pred_ids.to(ids.dtype)
-    elif sampler == 'exact':
-        filtered = _topk_filter(logits, topk).float()
-        temp = torch.clamp(torch.as_tensor(temperature, dtype=torch.float32,
-                                           device=logits.device), min=1e-10)
-        if temp.ndim == 1:  # per-sample (B,) -> (B, 1, 1)
-            temp = temp[:, None, None]
-        if noise is None:
-            noise = _gumbel(filtered.shape, generator=generator,
-                            device=logits.device)
-        pred_ids = torch.argmax(filtered / temp + noise, dim=-1).to(ids.dtype)
-        probs = torch.softmax(logits.float(), dim=-1)
-        conf = torch.gather(probs, -1, pred_ids.long()[..., None])[..., 0]
-    else:
-        raise ValueError(f"sampler must be 'auto', 'fused' or 'exact', got "
-                         f'{sampler!r}')
+    with annotate('pm.step.draw'):
+        if sampler == 'fused':
+            if noise is not None:
+                raise ValueError('noise is an input of the exact sampler; '
+                                 'the fused sampler draws its own from '
+                                 'generator')
+            pred_ids, conf = fused_gumbel_topk_sample(logits, temperature,
+                                                      topk,
+                                                      generator=generator)
+            pred_ids = pred_ids.to(ids.dtype)
+        elif sampler == 'exact':
+            filtered = _topk_filter(logits, topk).float()
+            temp = torch.clamp(torch.as_tensor(
+                temperature, dtype=torch.float32, device=logits.device),
+                min=1e-10)
+            if temp.ndim == 1:  # per-sample (B,) -> (B, 1, 1)
+                temp = temp[:, None, None]
+            if noise is None:
+                noise = _gumbel(filtered.shape, generator=generator,
+                                device=logits.device)
+            pred_ids = torch.argmax(filtered / temp + noise,
+                                    dim=-1).to(ids.dtype)
+            probs = torch.softmax(logits.float(), dim=-1)
+            conf = torch.gather(probs, -1, pred_ids.long()[..., None])[..., 0]
+        else:
+            raise ValueError(f"sampler must be 'auto', 'fused' or 'exact', "
+                             f'got {sampler!r}')
 
-    ids_filled = torch.where(is_mask, pred_ids, ids)
-    scores = torch.where(is_mask, 1.0 - conf,
-                         torch.full((), -1e5, device=ids.device))
-    # re-mask the n_masked lowest-confidence masked positions.  The
-    # reference's -1e5 sentinel (not -inf) lets kept tokens be re-masked
-    # when n_masked exceeds the masked count; clamp_remask (the paint path)
-    # clamps it to each sample's masked count instead.
-    if clamp_remask:
-        n_masked = torch.clamp(is_mask.sum(dim=1), max=int(n_masked))
-        n_masked = n_masked.reshape(-1, 1)
-    remask = _remask_by_rank if l <= 2048 else _remask_by_sort
-    return remask(scores, ids_filled, n_masked, cfg.mask_token_id), pred_ids
+    with annotate('pm.step.remask'):
+        is_mask = ids == cfg.mask_token_id
+        ids_filled = torch.where(is_mask, pred_ids, ids)
+        scores = torch.where(is_mask, 1.0 - conf,
+                             torch.full((), -1e5, device=ids.device))
+        # re-mask the n_masked lowest-confidence masked positions.  The
+        # reference's -1e5 sentinel (not -inf) lets kept tokens be
+        # re-masked when n_masked exceeds the masked count; clamp_remask
+        # (the paint path) clamps it to each sample's masked count instead.
+        if clamp_remask:
+            n_masked = torch.clamp(is_mask.sum(dim=1), max=int(n_masked))
+            n_masked = n_masked.reshape(-1, 1)
+        remask = _remask_by_rank if l <= 2048 else _remask_by_sort
+        return (remask(scores, ids_filled, n_masked, cfg.mask_token_id),
+                pred_ids)
 
 
 def _remask_by_rank(scores, ids_filled, n_masked, mask_token_id):
@@ -681,25 +692,30 @@ class Pipeline(nn.Module):
         if neg_context is not None and neg_context.shape[0] == 1:
             neg_context = neg_context.expand(context.shape)
         b = context.shape[0] if context is not None else (num_samples or 1)
-        init_ids = torch.full((b, self.num_tokens), self.mask_token_id,
-                              dtype=torch.int32, device=self.device)
-        _, shown = generate_ids(
-            self, init_ids, context, cfg=self.config, timesteps=timesteps,
-            temperature=temperature, topk=topk, guidance_scale=guidance_scale,
-            dtype=self.compute_dtype, cfg_warmup=cfg_warmup,
-            neg_context=neg_context, trajectory=trajectory,
-            generator=generator or self._generator)
-        if decode_steps == 'final':
-            steps = [timesteps - 1]
-        else:  # every save_interval-th step (generate.py:195-196)
-            steps = list(range(0, timesteps, save_interval))
-        sel = shown[steps]  # (S, B, L)
-        s = len(steps)
-        if s * b <= 128:
-            imgs = self.vqgan.decode_from_indice(sel.reshape(s * b, -1))
-            imgs = imgs.reshape(s, b, *imgs.shape[1:])
-            return [imgs[i] for i in range(s)]
-        return [self.vqgan.decode_from_indice(sel[i]) for i in range(s)]
+        with annotate('pm.generate', batch=b, steps=timesteps):
+            init_ids = torch.full((b, self.num_tokens), self.mask_token_id,
+                                  dtype=torch.int32, device=self.device)
+            _, shown = generate_ids(
+                self, init_ids, context, cfg=self.config,
+                timesteps=timesteps, temperature=temperature, topk=topk,
+                guidance_scale=guidance_scale, dtype=self.compute_dtype,
+                cfg_warmup=cfg_warmup, neg_context=neg_context,
+                trajectory=trajectory,
+                generator=generator or self._generator)
+            if decode_steps == 'final':
+                steps = [timesteps - 1]
+            else:  # every save_interval-th step (generate.py:195-196)
+                steps = list(range(0, timesteps, save_interval))
+            sel = shown[steps]  # (S, B, L)
+            s = len(steps)
+            with annotate('pm.decode'):
+                if s * b <= 128:
+                    imgs = self.vqgan.decode_from_indice(
+                        sel.reshape(s * b, -1))
+                    imgs = imgs.reshape(s, b, *imgs.shape[1:])
+                    return [imgs[i] for i in range(s)]
+                return [self.vqgan.decode_from_indice(sel[i])
+                        for i in range(s)]
 
     def _rect_latent_mask(self, coord, inside):
         """(reference generate.py:204-210): latent-grid mask from the pixel

@@ -51,6 +51,8 @@ from torch import nn
 
 from ..parallel import collectives as C
 from ..parallel.tensor_parallel import enter
+from ..utils import profiling
+from ..utils.profiling import annotate
 
 from .attention import Attention
 from .core import LayerNorm, Linear
@@ -198,46 +200,62 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
     tp = module.tp
     if dispatch == 'auto':
         dispatch = 'dense' if tp is not None and tp.size > 1 else 'gather'
-    if tp is not None and tp.sequence:  # whole sequence, as in the blocks
-        x = enter(x, tp)
-    lead, d = x.shape[:-1], x.shape[-1]
-    xt = x.reshape(-1, d)
-    t, e = xt.shape[0], module.num_experts
-    group = module.route_group
-    logits, probs, gate, idx, pos, keep, cap = route(
-        module, xt, num_selected, capacity_factor, group)
-    k = idx.shape[1]
-    dt = x.dtype
-    gk = gate.to(dt) * keep.to(dt)                          # (T, k)
-    if tp is not None:
-        y = _expert_parallel(module, xt, idx, pos, keep, gk, cap, dispatch,
-                             tp)
-    elif dispatch == 'dense':
-        pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
-        sel = F.one_hot(idx, e).to(dt)                      # (T, k, E)
-        pos_oh = pos_oh.to(dt)                              # (T, k, C)
-        disp = torch.einsum('tke,tkc->tec', sel * keep[..., None].to(dt),
-                            pos_oh)
-        comb = torch.einsum('tke,tkc->tec', gk[..., None] * sel, pos_oh)
-        expert_in = torch.einsum('tec,td->ecd', disp, xt)
-        expert_out = module.experts(expert_in)              # (E, C, Do)
-        y = torch.einsum('tec,ecd->td', comb, expert_out)
-    else:
-        cell = torch.where(keep, idx * cap + pos, e * cap).reshape(-1)
-        x_rep = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
-        buf = torch.index_put(xt.new_zeros(e * cap + 1, d), (cell,), x_rep)
-        expert_out = module.experts(buf[:-1].view(e, cap, d))
-        out = F.pad(expert_out.reshape(e * cap, -1), (0, 0, 0, 1))
-        picked = out[cell].view(t, k, -1)
-        # one (1, k) x (k, Do) product a token: the k terms accumulate in
-        # fp32 and round once, as in the dense form's product
-        y = torch.bmm(gk[:, None, :], picked)[:, 0]
+    with annotate('pm.moe'):
+        if tp is not None and tp.sequence:  # whole sequence, as in the blocks
+            x = enter(x, tp)
+        lead, d = x.shape[:-1], x.shape[-1]
+        xt = x.reshape(-1, d)
+        t, e = xt.shape[0], module.num_experts
+        group = module.route_group
+        with annotate('pm.moe.route'):
+            logits, probs, gate, idx, pos, keep, cap = route(
+                module, xt, num_selected, capacity_factor, group)
+            k = idx.shape[1]
+            dt = x.dtype
+            gk = gate.to(dt) * keep.to(dt)                      # (T, k)
+        profiling.count('pm.moe.assignments', keep.numel())
+        profiling.count('pm.moe.kept', keep)
+        if tp is not None:
+            y = _expert_parallel(module, xt, idx, pos, keep, gk, cap,
+                                 dispatch, tp)
+        elif dispatch == 'dense':
+            with annotate('pm.moe.dispatch'):
+                pos_oh = F.one_hot(torch.where(keep, pos, cap),
+                                   cap + 1)[..., :cap]
+                sel = F.one_hot(idx, e).to(dt)                  # (T, k, E)
+                pos_oh = pos_oh.to(dt)                          # (T, k, C)
+                disp = torch.einsum('tke,tkc->tec',
+                                    sel * keep[..., None].to(dt), pos_oh)
+                comb = torch.einsum('tke,tkc->tec', gk[..., None] * sel,
+                                    pos_oh)
+                expert_in = torch.einsum('tec,td->ecd', disp, xt)
+            with annotate('pm.moe.experts'):
+                expert_out = module.experts(expert_in)          # (E, C, Do)
+            with annotate('pm.moe.combine'):
+                y = torch.einsum('tec,ecd->td', comb, expert_out)
+        else:
+            with annotate('pm.moe.dispatch'):
+                cell = torch.where(keep, idx * cap + pos,
+                                   e * cap).reshape(-1)
+                x_rep = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+                buf = torch.index_put(xt.new_zeros(e * cap + 1, d), (cell,),
+                                      x_rep)
+            with annotate('pm.moe.experts'):
+                expert_out = module.experts(buf[:-1].view(e, cap, d))
+            with annotate('pm.moe.combine'):
+                out = F.pad(expert_out.reshape(e * cap, -1), (0, 0, 0, 1))
+                picked = out[cell].view(t, k, -1)
+                # one (1, k) x (k, Do) product a token: the k terms
+                # accumulate in fp32 and round once, as in the dense
+                # form's product
+                y = torch.bmm(gk[:, None, :], picked)[:, 0]
 
-    if tp is not None and tp.sequence:
-        y = C.local_slice(y.reshape(*lead, -1), tp.group, 1)
-        lead = y.shape[:-1]
-    return y.reshape(*lead, y.shape[-1]), _aux(logits, probs, idx, keep, e,
-                                               group)
+        if tp is not None and tp.sequence:
+            y = C.local_slice(y.reshape(*lead, -1), tp.group, 1)
+            lead = y.shape[:-1]
+        with annotate('pm.moe.aux'):
+            aux = _aux(logits, probs, idx, keep, e, group)
+        return y.reshape(*lead, y.shape[-1]), aux
 
 
 def _aux(logits, probs, idx, keep, e, group):
@@ -280,27 +298,38 @@ def _expert_parallel(module, xt, idx, pos, keep, gk, cap, dispatch, tp):
     dt = xt.dtype
     x_in = xt if tp.sequence else C.copy_to(xt, tp.group)
     g_in = gk if tp.sequence else C.copy_to(gk, tp.group)
+    reduce = C.all_reduce if tp.sequence else C.reduce_from
     if dispatch == 'dense':
-        pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1)[..., :cap]
-        sel = F.one_hot(idx, e).to(dt)[..., lo:lo + el]      # (T, k, El)
-        pos_oh = pos_oh.to(dt)
-        disp = torch.einsum('tke,tkc->tec', sel * keep[..., None].to(dt),
-                            pos_oh)
-        comb = torch.einsum('tke,tkc->tec', g_in[..., None] * sel, pos_oh)
-        expert_out = module.experts(torch.einsum('tec,td->ecd', disp, x_in))
-        y = torch.einsum('tec,ecd->td', comb, expert_out)
+        with annotate('pm.moe.dispatch'):
+            pos_oh = F.one_hot(torch.where(keep, pos, cap),
+                               cap + 1)[..., :cap]
+            sel = F.one_hot(idx, e).to(dt)[..., lo:lo + el]  # (T, k, El)
+            pos_oh = pos_oh.to(dt)
+            disp = torch.einsum('tke,tkc->tec', sel * keep[..., None].to(dt),
+                                pos_oh)
+            comb = torch.einsum('tke,tkc->tec', g_in[..., None] * sel,
+                                pos_oh)
+            expert_in = torch.einsum('tec,td->ecd', disp, x_in)
+        with annotate('pm.moe.experts'):
+            expert_out = module.experts(expert_in)
+        with annotate('pm.moe.combine'):
+            y = reduce(torch.einsum('tec,ecd->td', comb, expert_out),
+                       tp.group)
     else:
-        mine = keep & (idx >= lo) & (idx < lo + el)
-        cell = torch.where(mine, (idx - lo) * cap + pos, el * cap).reshape(-1)
-        x_rep = x_in[:, None, :].expand(t, k, d).reshape(t * k, d)
-        buf = torch.index_put(x_in.new_zeros(el * cap + 1, d), (cell,), x_rep)
-        expert_out = module.experts(buf[:-1].view(el, cap, d))
-        out = F.pad(expert_out.reshape(el * cap, -1), (0, 0, 0, 1))
-        picked = out[cell].view(t, k, -1)
-        y = torch.bmm(g_in[:, None, :], picked)[:, 0]
-    if tp.sequence:
-        return C.all_reduce(y, tp.group)
-    return C.reduce_from(y, tp.group)
+        with annotate('pm.moe.dispatch'):
+            mine = keep & (idx >= lo) & (idx < lo + el)
+            cell = torch.where(mine, (idx - lo) * cap + pos,
+                               el * cap).reshape(-1)
+            x_rep = x_in[:, None, :].expand(t, k, d).reshape(t * k, d)
+            buf = torch.index_put(x_in.new_zeros(el * cap + 1, d), (cell,),
+                                  x_rep)
+        with annotate('pm.moe.experts'):
+            expert_out = module.experts(buf[:-1].view(el, cap, d))
+        with annotate('pm.moe.combine'):
+            out = F.pad(expert_out.reshape(el * cap, -1), (0, 0, 0, 1))
+            picked = out[cell].view(t, k, -1)
+            y = reduce(torch.bmm(g_in[:, None, :], picked)[:, 0], tp.group)
+    return y
 
 
 class MoEBlock(nn.Module):

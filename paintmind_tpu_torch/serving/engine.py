@@ -62,6 +62,7 @@ import torch
 
 from ..parallel import collectives as C
 from ..parallel import multihost
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -134,6 +135,14 @@ class EngineOverloaded(RuntimeError):
 
 def _bucket(n, max_batch):
     return min(1 << max(0, math.ceil(math.log2(max(n, 1)))), max_batch)
+
+
+def _nearest_rank(values, p):
+    """The ``p`` percentile of sorted ``values`` by nearest rank (the
+    ``ceil(p·n)``-th smallest); None for none."""
+    if not values:
+        return None
+    return values[max(math.ceil(p * len(values)) - 1, 0)]
 
 
 _MASK64 = (1 << 64) - 1
@@ -219,17 +228,24 @@ class GenerationEngine:
     # -- public API --------------------------------------------------------
 
     def submit(self, request) -> Future:
+        """Queue ``request``; the future's ``request_id`` is the ``id`` of
+        its spans (``utils.profiling``).  Its latency in ``stats()`` runs
+        from here, the tower's encode included."""
+        t0 = time.monotonic()
         if not self.leader:
             raise RuntimeError('only rank 0 takes requests; the other ranks '
                                'run follow()')
         if self._closed:
             raise RuntimeError('engine is closed')
+        rid = profiling.new_id()
         if isinstance(request, (GenerateRequest, PaintRequest)) \
                 and request.text is not None and request.context is None:
             # encode text on the caller's thread; sampling stays batched
-            ctx = self.pipeline.embed_text([request.text])
+            with profiling.annotate('pm.serve.tower', id=rid):
+                ctx = self.pipeline.embed_text([request.text])
             request = dataclasses.replace(request, context=ctx[0], text=None)
         fut = Future()
+        fut.request_id = rid
         with self._lock:  # check + put under the lock: the bound holds
             if self.max_queue is not None \
                     and self._queue.qsize() >= self.max_queue:
@@ -239,7 +255,7 @@ class GenerationEngine:
             else:
                 depth = None
                 self._counters['requests'] += 1
-                self._queue.put((request, fut, time.monotonic()))
+                self._queue.put((request, fut, t0, time.monotonic()))
         if depth is not None:
             raise EngineOverloaded(
                 f'queue depth {depth} >= max_queue {self.max_queue}')
@@ -260,13 +276,21 @@ class GenerationEngine:
                 self._counters[k] = 0
 
     def stats(self):
+        """The counters, the queue's depth, the mean batch occupancy and,
+        over the last ``latency_window`` requests, nearest-rank percentiles
+        of their latency (``submit`` to the batch's end: the tower's
+        encode, the queue and the batch) and of their queue wait (enqueued
+        to collected into a batch), in seconds (None before the first)."""
         with self._lock:
-            lat = sorted(self._latencies)
+            recs = list(self._latencies)
             c = dict(self._counters)
-        pct = (lambda p: lat[min(int(p * len(lat)), len(lat) - 1)]
-               if lat else None)
+        lat = sorted(r[0] for r in recs)
+        wait = sorted(r[1] for r in recs)
         c.update(queue_depth=self._queue.qsize(),
-                 latency_p50_s=pct(0.50), latency_p95_s=pct(0.95),
+                 latency_p50_s=_nearest_rank(lat, 0.50),
+                 latency_p95_s=_nearest_rank(lat, 0.95),
+                 queue_wait_p50_s=_nearest_rank(wait, 0.50),
+                 queue_wait_p90_s=_nearest_rank(wait, 0.90),
                  mean_batch_occupancy=(c['batched_requests'] /
                                        c['batches'] if c['batches'] else None))
         return c
@@ -334,11 +358,11 @@ class GenerationEngine:
         """Gather requests sharing ``first``'s signature until the bucket is
         full or ``max_wait`` has passed; incompatible arrivals are re-queued
         in their original order and picked up by the next group."""
-        req, fut, t0 = first
+        req, fut = first[:2]
         if fut.cancelled():
             return None
         sig = req.signature()
-        group = [(req, fut, t0)]
+        group = [first]
         deadline = time.monotonic() + self.max_wait
         stash = []
         while len(group) < self.max_batch:
@@ -360,7 +384,7 @@ class GenerationEngine:
                 stash.append(item)
         for item in stash:  # preserve arrival order for the next group
             self._queue.put(item)
-        return sig, group
+        return sig, group, time.monotonic()
 
     def _run(self, kind, reqs, seed):
         if kind == 'generate':
@@ -369,14 +393,26 @@ class GenerationEngine:
             return self._run_paint(reqs, seed)
         return self._run_reconstruct(reqs)
 
-    def _run_group(self, sig, group):
+    def _run_group(self, sig, group, collected):
+        """Run one collected group; ``collected``: when its collection
+        ended (the end of its requests' queue wait)."""
+        ids = [fut.request_id for _, fut, _, _ in group]
+        batch = profiling.new_id()
+        end_ns = time.time_ns()
+        for (_, _, _, queued), rid in zip(group, ids):
+            wait_ns = int((collected - queued) * 1e9)
+            profiling.record('pm.serve.queue', end_ns - wait_ns, end_ns,
+                             id=rid, batch=batch)
         try:
-            reqs = [r for r, _, _ in group]
-            seed = self._batch_seed(reqs)
-            if self.mesh is not None:
-                self._announce((sig[0], [_host_request(r) for r in reqs],
-                                seed))
-            outs = self._run(sig[0], reqs, seed)
+            reqs = [r for r, _, _, _ in group]
+            with profiling.annotate(
+                    'pm.serve.batch', id=batch, requests=ids,
+                    padded=self._bucket_of(len(reqs)) - len(reqs)):
+                seed = self._batch_seed(reqs)
+                if self.mesh is not None:
+                    self._announce((sig[0],
+                                    [_host_request(r) for r in reqs], seed))
+                outs = self._run(sig[0], reqs, seed)
             err = None
         except Exception as e:  # noqa: BLE001 — surfaced via futures
             outs, err = None, e
@@ -386,9 +422,9 @@ class GenerationEngine:
             self._counters['batched_requests'] += len(group)
             if err is not None:
                 self._counters['errors'] += len(group)
-            for _, _, t0 in group:
-                self._latencies.append(now - t0)
-        for i, (_, fut, _) in enumerate(group):
+            for _, _, t0, queued in group:
+                self._latencies.append((now - t0, collected - queued))
+        for i, (_, fut, _, _) in enumerate(group):
             if fut.cancelled():  # client gave up while the batch ran
                 continue
             if err is not None:
@@ -407,15 +443,19 @@ class GenerationEngine:
             x = torch.cat([x, x[:1].expand(bucket - len(rows), *x.shape[1:])])
         return x
 
-    def _count_padding(self, n):
-        """The batch's bucket: a power of two capped at ``max_batch``,
-        raised to a multiple of dp × microbatches under pipeline
-        parallelism."""
+    def _bucket_of(self, n):
+        """The bucket of ``n`` requests: a power of two capped at
+        ``max_batch``, raised to a multiple of dp × microbatches under
+        pipeline parallelism."""
         bucket = _bucket(n, self.max_batch)
         m = self._min_bucket
         if bucket % m:
             bucket = min((bucket + m - 1) // m * m, self.max_batch)
-        bucket = max(bucket, m)
+        return max(bucket, m)
+
+    def _count_padding(self, n):
+        """The batch's bucket (``_bucket_of``), its padded slots counted."""
+        bucket = self._bucket_of(n)
         with self._lock:
             self._counters['padded_slots'] += bucket - n
         return bucket

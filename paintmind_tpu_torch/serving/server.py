@@ -10,7 +10,8 @@ the single dispatch thread drives the card.
 
 Endpoints:
   GET  /healthz       -> {"ok": true}
-  GET  /stats         -> engine counters / latency percentiles
+  GET  /stats         -> engine counters, latency and queue-wait
+                         percentiles (``GenerationEngine.stats``)
   POST /generate      -> {"prompt"?: str, "context"?: [[...]], "timesteps"?,
                           "topk"?, "temperature"?, "guidance_scale"?,
                           "cfg_warmup"?, "seed"?}
@@ -39,6 +40,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..utils import profiling
 from .engine import (EngineOverloaded, GenerateRequest, GenerationEngine,
                      PaintRequest, ReconstructRequest)
 
@@ -50,6 +52,14 @@ def _img_to_png_b64(img):
     buf = io.BytesIO()
     Image.fromarray(arr.astype(np.uint8)).save(buf, format='PNG')
     return base64.b64encode(buf.getvalue()).decode('ascii')
+
+
+def _reply_png(fut):
+    """The image of an engine future as base64 PNG, encoded in a
+    ``pm.serve.png`` span of its request."""
+    img = fut.result()
+    with profiling.annotate('pm.serve.png', id=fut.request_id):
+        return _img_to_png_b64(img)
 
 
 class ClientError(ValueError):
@@ -126,9 +136,8 @@ class _Handler(BaseHTTPRequestHandler):
         context = req.get('context')
         if context is not None:
             context = np.asarray(context, np.float32)
-        img = self.engine.submit(GenerateRequest(
-            text=req.get('prompt'), context=context, **kw)).result()
-        return {'image': _img_to_png_b64(img)}
+        return {'image': _reply_png(self.engine.submit(GenerateRequest(
+            text=req.get('prompt'), context=context, **kw)))}
 
     def _paint(self, req, mode):
         for k in ('image', 'coord'):
@@ -151,10 +160,9 @@ class _Handler(BaseHTTPRequestHandler):
             context = np.asarray(context, np.float32)
         kw = {k: req[k] for k in ('timesteps', 'topk', 'temperature',
                                   'guidance_scale', 'seed') if k in req}
-        out = self.engine.submit(PaintRequest(
+        return {'image': _reply_png(self.engine.submit(PaintRequest(
             image=x, coord=tuple(req['coord']), mode=mode,
-            text=req.get('prompt'), context=context, **kw)).result()
-        return {'image': _img_to_png_b64(out)}
+            text=req.get('prompt'), context=context, **kw)))}
 
     def _variations(self, req):
         if 'image' not in req:
@@ -199,14 +207,14 @@ class _Handler(BaseHTTPRequestHandler):
             for f in futs:
                 f.cancel()
             raise
-        return {'images': [_img_to_png_b64(f.result()) for f in futs]}
+        return {'images': [_reply_png(f) for f in futs]}
 
     def _reconstruct(self, req):
         if 'image' not in req:
             raise ClientError("missing 'image' (base64 PNG/JPEG)")
         x = _png_b64_to_img(req['image'], self.engine.pipeline.image_size)
-        rec = self.engine.submit(ReconstructRequest(image=x)).result()
-        return {'image': _img_to_png_b64(rec)}
+        return {'image': _reply_png(self.engine.submit(
+            ReconstructRequest(image=x)))}
 
 
 def make_server(engine, host='127.0.0.1', port=8000, defaults=None):

@@ -56,6 +56,7 @@ from ..models import vqmodel as vm
 from ..models.quantize import l2norm
 from ..nn.core import global_rows
 from ..parallel import collectives as C
+from ..utils.profiling import annotate
 
 
 def _cast(x, dtype):
@@ -459,6 +460,10 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
         if b % grad_accum:
             raise ValueError(f'batch size {b} not divisible by '
                              f'grad_accum_steps={grad_accum}')
+        with annotate('pm.train.update', batch=b):
+            return update(imgs, context, mask_ratio, noise)
+
+    def update(imgs, context, mask_ratio, noise):
         pipe.train()
         _zero_grads(optimizer, params, grad_sync)
         chunks = [imgs.chunk(grad_accum),
@@ -477,13 +482,15 @@ def make_pipeline_train_step(pipe, optimizer, *, grad_accum=1,
                         generator=state['generator'], noise=nz,
                         backend=backend, vq_backend=vq_backend, remat=remat,
                         return_aux=True, transformer_apply=transformer_apply)
-                loss.backward()
+                with annotate('pm.train.backward'):
+                    loss.backward()
                 loss_sum = loss_sum + loss.detach()
                 aux_sum = {n: aux_sum.get(n, 0.0) + v for n, v in aux.items()}
         # a parameter the batch did not reach (context_proj when the text
         # was dropped) gets a zero gradient: its moments and its weight
         # decay still advance, as in optax
-        _update(optimizer, params, grad_accum, grad_sync)
+        with annotate('pm.train.optimizer'):
+            _update(optimizer, params, grad_accum, grad_sync)
         state['step'] += 1
         if ema_decay is not None:
             _ema_update(state['ema'], params, ema_decay)
