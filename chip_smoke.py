@@ -138,6 +138,7 @@ from paintmind_tpu_torch.models.pipeline import (
 from paintmind_tpu_torch.nn.core import init_module_
 from paintmind_tpu_torch.ops import _build
 from paintmind_tpu_torch.ops import flash_attention as fa
+from paintmind_tpu_torch.ops import moe_experts as me
 from paintmind_tpu_torch.ops import sampling as sm
 from paintmind_tpu_torch.ops import vq_lookup as vq
 from paintmind_tpu_torch.serving import (GenerateRequest, GenerationEngine,
@@ -160,7 +161,7 @@ CARD = ''  # name and power limit as nvidia-smi gives them; set in main()
 # kernel -> (module, name of its launch counter there)
 KERNEL_COUNTERS = {'K1': (fa, 'launches'), 'K2': (vq, 'launches'),
                    'K3': (sm, 'launches'), 'K3r': (sm, 'launches_radix'),
-                   'K4': (fa, 'launches_bwd')}
+                   'K4': (fa, 'launches_bwd'), 'K5': (me, 'launches')}
 
 
 def log(*parts):
@@ -416,6 +417,151 @@ def check_k4(g):
                 del lq, lk, lv, lo, lg
             log(line)
             del q, k, v, go, lse, got, again, ref, leaves, o2, auto
+    return entry
+
+
+def k5_layer(g, e=8, d=1024, mlp=4096):
+    """paintmindv1-moe's routed layer on the card (fp32 router, seeded
+    Xavier experts, biases N(0, 0.02)) and its experts' bf16 weights
+    ``(w12, b12, w3, b3)``."""
+    from paintmind_tpu_torch.nn import moe as tmoe
+    layer = tmoe.MoESwiGLU(d, mlp, e, device='cuda')
+    init_module_(layer, g)
+    for lin in (layer.experts.w12, layer.experts.w3):
+        lin.init_weights_(g)
+        with torch.no_grad():
+            lin.bias.copy_(torch.randn(lin.bias.shape, device='cuda',
+                                       generator=g) * 0.02)
+    ex = layer.experts
+    return layer, tuple(t.detach().bfloat16().contiguous() for t in (
+        ex.w12.weight, ex.w12.bias, ex.w3.weight, ex.w3.bias))
+
+
+def k5_compare(xp, off, weights, what):
+    """K5 on packed rows against ``grouped_swiglu_plain``: every element of
+    every packed row within one bf16 step (8e-3 relative + 1e-3: the two sum
+    in another order, and a rounding of H or O may fall on either side) and a
+    second run bit-equal.  Returns (max abs err, rows)."""
+    got = me.grouped_swiglu(xp, off, *weights)
+    again = me.grouped_swiglu(xp, off, *weights)
+    ref = me.grouped_swiglu_plain(xp, off, *weights)
+    rows = int(off[-1])
+    got, again, ref = got[:rows], again[:rows], ref[:rows]
+    check(torch.equal(got, again), f'K5 {what}: a second run gave other bits')
+    diff = (got.float() - ref.float()).abs()
+    ok = diff <= 8e-3 * ref.float().abs() + 1e-3
+    err = diff.max().item() if rows else 0.0
+    check(bool(ok.all()) and bool(torch.isfinite(got).all()),
+          f'K5 {what}: {int((~ok).sum())} elements off the plain version, '
+          f'max abs {err}')
+    return err, rows
+
+
+def check_k5(g):
+    """K5 (``ops/moe_experts.py``: K5a the w12 product with the SwiGLU in
+    its epilogue, K5b the w3 product, over expert-packed rows) at
+    paintmindv1-moe's widths (D = 1024, h = 2736, E = 8), on the card:
+
+    * a synthetic packing with ragged experts (0, 1, 127, 128, 129, 2560
+      and 300 rows, one more at 5) over a buffer whose rows past the packed
+      ones are unset (NaN here): K5 against ``grouped_swiglu_plain``
+      (``k5_compare``'s gate), a second run bit-equal;
+    * the routing of T = 8192 and T = 32768 N(0, 1) bf16 tokens by the
+      seeded router (phase 5b's layer call and the benchmark's, capacity
+      2560 and 10240): ``dispatch`` (its kernels) equals
+      ``dispatch_plain`` and gives each expert ``min(count, cap)``
+      rows, every kept assignment a row of its expert, every row a token
+      routed to it (checked on the host), K5 the gate above,
+      ``combine`` equals ``combine_plain`` within one bf16 step, and the
+      whole layer (``moe_swiglu``, packed) against the padded path (the same
+      call with a gradient recorded) within 1e-2 max abs;
+    * times at T = 32768: K5a + K5b beside the bound (6·D·h operations a
+      kept row at 989 TFLOP/s) and the padded ``baddbmm`` pair over the
+      (E, C, D) buffer (``library_ms``), the dispatch and combine."""
+    from paintmind_tpu_torch.nn import moe as tmoe
+    d, e, hidden = 1024, 8, 2736
+    layer, weights = k5_layer(g)
+    counts = [0, 1, 127, 128, 129, 2560, 300, 5]
+    off = torch.tensor([0] + list(itertools.accumulate(counts)),
+                       dtype=torch.int32, device='cuda')
+    xp = torch.randn(off[-1].item() + 200, d, device='cuda',
+                     generator=g).bfloat16()
+    xp[off[-1].item():] = float('nan')
+    err, rows = k5_compare(xp, off, weights, 'ragged experts')
+    notes = [f'ragged experts {counts} ({rows} rows): max abs {err:.3e}']
+    entry = None
+    for t in (8192, 32768):
+        x = torch.randn(t, d, device='cuda', generator=g).bfloat16()
+        with torch.no_grad():
+            _, _, gate, idx, pos, keep, cap = tmoe.route(layer, x, 2, 1.25)
+            off, row, xp = me.dispatch(x, idx, pos, keep, cap, e)
+            p_off, row_token, p_row = me.pack_rows_plain(idx, pos, keep, cap, e)
+        rows = int(off[-1])
+        check(torch.equal(off, p_off) and torch.equal(row, p_row)
+              and torch.equal(xp[:rows], x[row_token[:rows].long()]),
+              f'K5 T={t}: dispatch differs from dispatch_plain')
+        n = torch.stack([(idx == i).sum() for i in range(e)]).clamp(max=cap)
+        check(torch.equal(off[1:].long(), n.cumsum(0)),
+              f'K5 T={t}: offsets {off.tolist()}, expected {n.tolist()}')
+        kept_rows = row[keep].long()
+        check(bool((row[~keep] == -1).all()) and bool(
+            ((kept_rows >= off[idx[keep]]) & (kept_rows < off[idx[keep] + 1])).all())
+            and kept_rows.unique().numel() == kept_rows.numel(),
+            f'K5 T={t}: a kept assignment has no row of its own expert')
+        tok = row_token[:rows].long()
+        owner = torch.searchsorted(off[1:].long(), torch.arange(
+            rows, device='cuda'), right=True)
+        check(bool((idx[tok] == owner[:, None]).any(-1).all()),
+              f'K5 T={t}: a packed row holds a token not routed to its expert')
+        err, _ = k5_compare(xp, off, weights, f'T={t}')
+        out = me.grouped_swiglu(xp, off, *weights)
+        gk = gate.bfloat16() * keep.bfloat16()
+        y = me.combine(out, row, gk)
+        ref_y = me.combine_plain(out[:rows], row, gk)
+        cdiff = (y.float() - ref_y.float()).abs()
+        check(bool((cdiff <= 8e-3 * ref_y.float().abs() + 1e-6).all()),
+              f'K5 T={t}: combine off combine_plain by {cdiff.max().item()}')
+        with torch.no_grad():
+            y_packed, aux = tmoe.moe_swiglu(layer, x, 2, 1.25, 'gather')
+        with torch.enable_grad():
+            y_padded, _ = tmoe.moe_swiglu(layer, x, 2, 1.25, 'gather')
+        lerr = (y_packed.float() - y_padded.detach().float()).abs().max().item()
+        check(lerr <= 1e-2, f'K5 T={t}: the packed layer off the padded one '
+              f'by {lerr}')
+        del y_padded
+        line = (f'T={t} (capacity {cap}, {rows} rows of {min(2 * t, e * cap)}, '
+                f'kept {keep.float().mean().item():.4f}): max abs {err:.3e}, '
+                f'combine {cdiff.max().item():.3e}, layer packed vs padded '
+                f'{lerr:.3e}')
+        if t == 32768:
+            ms = time_ms(lambda: me.grouped_swiglu(xp, off, *weights), 20)
+            plain_ms = time_ms(lambda: me.grouped_swiglu_plain(
+                xp, off, *weights), 3)
+            buf = torch.randn(e, cap, d, device='cuda', generator=g).bfloat16()
+            w12, b12, w3, b3 = weights
+
+            def padded():  # StackedSwiGLU.forward on the (E, C, D) buffer
+                x1, x2 = torch.baddbmm(b12[:, None, :], buf,
+                                       w12.transpose(1, 2)).chunk(2, dim=-1)
+                return torch.baddbmm(b3[:, None, :], F.silu(x1) * x2,
+                                     w3.transpose(1, 2))
+            lib_ms = time_ms(padded, 10)
+            del buf
+            disp_ms = time_ms(lambda: me.dispatch(x, idx, pos, keep, cap, e), 20)
+            comb_ms = time_ms(lambda: me.combine(out, row, gk), 20)
+            ops = 6 * d * hidden * rows
+            nbytes = (2 * rows * d + 2 * e * 3 * d * hidden) * 2
+            bms, by = bound(nbytes, ops, torch.bfloat16)
+            line += (f'; ms={ms:.4f} (K5a + K5b) = {ops / ms / 1e9:.1f} TFLOP/s '
+                     f'bound_ms={bms:.4f} ({by}) plain_ms={plain_ms:.4f} '
+                     f'baddbmm_pair_ms={lib_ms:.4f} (all {e * cap} slots); '
+                     f'dispatch_ms={disp_ms:.4f} combine_ms={comb_ms:.4f}; '
+                     f'{CARD}')
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        notes.append(line)
+        del x, xp, out, y, ref_y
+    log('K5 ' + '; '.join(notes))
     return entry
 
 
@@ -1043,15 +1189,40 @@ def moe_phase(totals):
             imgs, s = drive(lambda: half.generate(
                 text=ctx, timesteps=steps, topk=5, decode_steps='final',
                 generator=g, **kw)[-1],
-                {'K1': depth * per_layer * steps + dec, 'K3': steps}, totals,
+                {'K1': depth * per_layer * steps + dec, 'K3': steps,
+                 'K5': depth * per_layer // 2 * steps}, totals,
                 f'MoE generate B=8 {steps} steps bf16 {what} run {i}')
             check_images(imgs, f'MoE {what} generate')
             secs.append(s)
         rates[what] = 8 / float(np.median(secs))
     peak = peak_gib()
+    # the routed layer's counters: one packed call and one K5 call per layer
+    # and pass, the packed rows the queued assignments (a generator of its
+    # own: the later gates read g's draws as before)
+    profiling.reset()
+    with profiling.recording():
+        own = torch.Generator(device='cuda').manual_seed(18)
+        drive(lambda: half.generate(text=ctx, timesteps=2, topk=5,
+                                    decode_steps='final', generator=own,
+                                    guidance_scale=3.0)[-1],
+              {'K1': depth * 4 * 2 + dec, 'K3': 2, 'K5': depth * 2 * 2},
+              totals, 'MoE generate B=8 2 steps bf16 guided, recording')
+    counters = profiling.snapshot()['counters']
+    profiling.reset()
+    calls = depth * 2 * 2
+    check(counters.get('pm.moe.grouped') == calls == me.launches
+          and counters.get('pm.moe.kept', 0) <= counters.get('pm.moe.rows', -1)
+          <= counters.get('pm.moe.assignments', 0),
+          f'MoE packed-path counters {counters}, K5 launches {me.launches}, '
+          f'layer calls {calls}')
+    log(f'MoE packed path: pm.moe.grouped {counters["pm.moe.grouped"]:.0f} = '
+        f'K5 launches {me.launches} = layer calls; rows '
+        f'{counters["pm.moe.rows"]:.0f}, kept {counters["pm.moe.kept"]:.0f} of '
+        f'{counters["pm.moe.assignments"]:.0f} assignments')
     painted, _ = drive(lambda: half.inpaint(imgs, (64, 64, 128, 128), text=ctx,
                                             timesteps=4, generator=g),
-                       {'K1': enc + depth * 2 * 4 + dec, 'K2': 1, 'K3': 4},
+                       {'K1': enc + depth * 2 * 4 + dec, 'K2': 1, 'K3': 4,
+                        'K5': depth * 4},
                        totals, 'MoE inpaint B=8 4 steps bf16')
     check_images(painted, 'MoE inpaint')
     log(f'MoE generate bf16 B=8 {steps} steps (incl. decode): '
@@ -1068,7 +1239,8 @@ def moe_phase(totals):
                                                topk=5, seed=seeds[i]))
                     for i in range(3)]
             return [f.result(timeout=600) for f in futs]
-        got, _ = drive(served, {'K1': depth * 2 * steps + dec, 'K3': steps},
+        got, _ = drive(served, {'K1': depth * 2 * steps + dec, 'K3': steps,
+                                'K5': depth * steps},
                        totals, 'MoE engine: 3 seeded requests, one batch of 4')
         stats = eng.stats()
     check(stats['batches'] == 1 and stats['padded_slots'] == 1,
@@ -1094,8 +1266,8 @@ def moe_phase(totals):
     imgs4, _ = drive(lambda: four.generate(text=ctx, timesteps=2, topk=5,
                                            decode_steps='final',
                                            generator=g)[-1],
-                     {'K1': depth * 2 * 2 + dec, 'K3': 2}, totals,
-                     'paintmindv1-moe-4e generate B=8 2 steps bf16')
+                     {'K1': depth * 2 * 2 + dec, 'K3': 2, 'K5': depth * 2},
+                     totals, 'paintmindv1-moe-4e generate B=8 2 steps bf16')
     check_images(imgs4, 'paintmindv1-moe-4e generate')
     del four, imgs4
 
@@ -2875,13 +3047,14 @@ def data_rfid_phase(totals):
 # the bf16 attention kernels, which must run their products on the tensor cores
 TENSOR_CORE_KERNELS = {'flash_attention': ['attn_fwd_wgmma'],
                        'flash_attention_bwd': ['attn_bwd_dq_wgmma',
-                                               'attn_bwd_dkdv_wgmma']}
+                                               'attn_bwd_dkdv_wgmma'],
+                       'moe_experts': ['moe_expert_gemm']}
 
 
 def short_name(entry):
     """A mangled kernel name in readable form: ``attn_fwd_wgmma<1>``,
     ``vq_lookup<4>``, ``sample_rows<bf16,5>``, ``unpack_keys``."""
-    found = re.search(r'\d+((?:attn|vq|sample|unpack)_[a-z0-9_]+?)'
+    found = re.search(r'\d+((?:attn|vq|sample|unpack|moe)_[a-z0-9_]+?)'
                       r'(?:I(\w+?)EE|E)', entry)
     if not found:
         return entry
@@ -3049,7 +3222,8 @@ def profiles(serving, trained, stage1, moe, w8a8):
 KERNEL_LIBRARIES = {'K1': ('flash_attention',),
                     'K2': ('vq_lookup',), 'K3': ('sampling',),
                     'K3r': ('sampling',),
-                    'K4': ('flash_attention', 'flash_attention_bwd')}
+                    'K4': ('flash_attention', 'flash_attention_bwd'),
+                    'K5': ('moe_experts',)}
 
 
 def main():
@@ -3070,7 +3244,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {'K1': check_k1, 'K2': check_k2, 'K3': check_k3,
-              'K3r': check_k3_radix, 'K4': check_k4}
+              'K3r': check_k3_radix, 'K4': check_k4, 'K5': check_k5}
     only = sys.argv[1:]
     multigpu_only = only == ['multigpu']
     if multigpu_only:
@@ -3159,6 +3333,9 @@ def main():
         'K4': ('flash_attention_bwd', 'cuda',
                'paintmind_tpu_torch/csrc/flash_attention_bwd.cu',
                'paintmind_tpu/ops/flash_attention.py:195'),
+        'K5': ('moe_experts (K5a w12 + SwiGLU, K5b w3)', 'cuda',
+               'paintmind_tpu_torch/csrc/moe_experts.cu',
+               'none (nn/moe.py experts, XLA in the JAX package)'),
     }
     kernels = []
     for key, (name, route, source, replaces) in meta.items():

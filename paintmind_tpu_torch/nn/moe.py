@@ -34,10 +34,20 @@ place its own assignments in the global slot order, and the statistics are
 summed over the group.
 
 The experts are stacked: ``experts.w12`` and ``experts.w3`` are
-``StackedLinear`` layers with weight (E, out, in) and bias (E, out), run as
-one batched product (``torch.baddbmm``) over an (E, C, D) buffer.  The JAX
-package computes dispatch, experts and combine with XLA, outside any
-Pallas kernel, so here they are plain PyTorch too.
+``StackedLinear`` layers with weight (E, out, in) and bias (E, out).  The
+JAX package computes dispatch, experts and combine with XLA, outside any
+Pallas kernel.  Here ``'gather'`` takes one of two paths, by what the call
+can see:
+
+  * packed (``ops/moe_experts.py``, kernel K5): the kept assignments packed
+    by expert, the experts run on those rows alone with the SwiGLU in the
+    first product's epilogue, and a combine that reads only the kept rows.
+    Taken when nothing records a gradient, the experts are not carved over
+    a model axis, no data-parallel group routes the batch, and the tokens
+    are bf16 on the card (the kernels) or on the CPU (their plain version);
+  * padded: an (E, C, D) buffer run as one batched product
+    (``torch.baddbmm``) pair.  Everything else: training (K5 has no
+    backward), expert or data parallelism, fp32 and fp16 on the card.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import moe_experts as K5
 from ..parallel import collectives as C
 from ..parallel.tensor_parallel import enter
 from ..utils import profiling
@@ -185,8 +196,10 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
     """x: (..., D) -> (y (..., D), aux).  ``aux``: ``lb_loss``,
     ``router_z``, ``dropped`` (0-d fp32) and ``expert_load`` ((E,) fp32).
 
-    ``dispatch``: ``'gather'`` writes each kept assignment's token into its
-    own (expert, queue) cell of an (E·C + 1, D) buffer by an indexed
+    ``dispatch``: ``'gather'`` runs the experts on the kept assignments
+    packed by expert where the call allows it (the packed path, K5: the
+    module's docstring); otherwise it writes each kept assignment's token
+    into its own (expert, queue) cell of an (E·C + 1, D) buffer by an indexed
     assignment (the cells are unique, so no atomics and the same bits every
     run; dropped assignments all land in the spare last row, which is cut
     off), runs the experts as one batched product pair and gathers the
@@ -200,6 +213,7 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
     tp = module.tp
     if dispatch == 'auto':
         dispatch = 'dense' if tp is not None and tp.size > 1 else 'gather'
+    packed = dispatch == 'gather' and _packed(module, x)
     with annotate('pm.moe'):
         if tp is not None and tp.sequence:  # whole sequence, as in the blocks
             x = enter(x, tp)
@@ -218,6 +232,19 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
         if tp is not None:
             y = _expert_parallel(module, xt, idx, pos, keep, gk, cap,
                                  dispatch, tp)
+        elif packed:
+            with annotate('pm.moe.dispatch'):
+                off, row, xp = K5.dispatch(xt.contiguous(), idx, pos, keep, cap,
+                                           e)
+            profiling.count('pm.moe.grouped', 1)
+            profiling.count('pm.moe.rows', off[-1])
+            with annotate('pm.moe.experts'):
+                w12, w3 = module.experts.w12, module.experts.w3
+                out = K5.grouped_swiglu(xp, off, w12.weight.to(dt),
+                                        w12.bias.to(dt), w3.weight.to(dt),
+                                        w3.bias.to(dt))
+            with annotate('pm.moe.combine'):
+                y = K5.combine(out, row, gk)
         elif dispatch == 'dense':
             with annotate('pm.moe.dispatch'):
                 pos_oh = F.one_hot(torch.where(keep, pos, cap),
@@ -256,6 +283,19 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
         with annotate('pm.moe.aux'):
             aux = _aux(logits, probs, idx, keep, e, group)
         return y.reshape(*lead, y.shape[-1]), aux
+
+
+def _packed(module, x):
+    """Whether a ``'gather'`` call takes the packed path (the module's
+    docstring): no gradient recorded, no expert or data parallelism, and
+    bf16 tokens on the card or any tokens on the CPU."""
+    if module.tp is not None or module.route_group is not None:
+        return False
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in module.parameters())):
+        return False
+    return x.device.type == 'cpu' or (x.device.type == 'cuda'
+                                      and x.dtype == torch.bfloat16)
 
 
 def _aux(logits, probs, idx, keep, e, group):

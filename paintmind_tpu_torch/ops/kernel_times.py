@@ -1,16 +1,20 @@
 """Device times of the hand-written VQ lookup (K2), sampling head (K3, a
-warp a row) and its radix-select kernel (K3r) through their wrappers, for
-comparing two checkouts, or one checkout with and without a part of a
-kernel, in one run on one card:
+warp a row), its radix-select kernel (K3r) and the routed FFN's grouped
+expert products (K5: K5a and K5b apart, the dispatch and combine passes,
+and the padded ``baddbmm`` pair they replace) through their
+wrappers, for comparing two checkouts, or one checkout with and without a
+part of a kernel, in one run on one card:
 
     python3 paintmind_tpu_torch/ops/kernel_times.py                # this checkout
     python3 paintmind_tpu_torch/ops/kernel_times.py --root DIR     # another one
     python3 paintmind_tpu_torch/ops/kernel_times.py --define K3_NO_SELECT
     python3 paintmind_tpu_torch/ops/kernel_times.py --root DIR --kernels K3r
+    python3 paintmind_tpu_torch/ops/kernel_times.py --kernels K5
 
 ``--define`` compiles the kernels with a macro that cuts a part out
 (``K3_NO_SELECT``: no top-k lists; ``K3_NO_EXP``: no exp and sum;
-``K2_NO_FOLD``: no compare and select).  The results are then wrong; only
+``K2_NO_FOLD``: no compare and select; ``K5_NO_EPILOGUE``: no bias, SwiGLU
+or stores after a tile's products).  The results are then wrong; only
 the time says what that part costs.  Launches are queued behind a device-side
 sleep, so the time is the device's and not the host's rate of launching.
 """
@@ -30,8 +34,8 @@ def main():
                         help='checkout whose paintmind_tpu_torch is timed')
     parser.add_argument('--define', action='append', default=[],
                         help='macro to compile the kernels with')
-    parser.add_argument('--kernels', nargs='+', default=['K2', 'K3', 'K3r'],
-                        choices=['K2', 'K3', 'K3r'], help='kernels to time')
+    parser.add_argument('--kernels', nargs='+', default=['K2', 'K3', 'K3r', 'K5'],
+                        choices=['K2', 'K3', 'K3r', 'K5'], help='kernels to time')
     args = parser.parse_args()
     sys.path[0] = args.root  # not this directory: its modules are the package's
     import torch
@@ -89,6 +93,65 @@ def main():
         print(f'{name} {what} V={lg.shape[-1]} k={k}: {ms:.4f} ms = '
               f'{lg.numel() * lg.element_size() / ms / 1e6:.0f} GB/s',
               flush=True)
+    del logits
+    if 'K5' in args.kernels:
+        k5_times(device_ms, g)
+
+
+def k5_times(device_ms, g):
+    """K5 at the benchmark's layer call: T = 32768 tokens, D = 1024,
+    h = 2736, E = 8, top-2, capacity 10240, 52 % of the 65536 assignments
+    kept (``moe_fill.batch``), spread over the experts as a seeded
+    multinomial draw."""
+    import torch
+    from paintmind_tpu_torch.ops import moe_experts as me
+    t, d, h, e, cap = 32768, 1024, 2736, 8, 10240
+    kept = round(0.52 * 2 * t)
+    share = torch.rand(e, device='cuda', generator=g) + 0.5
+    counts = torch.multinomial(share, kept, replacement=True,
+                               generator=g).bincount(minlength=e).clamp(max=cap)
+    off = torch.nn.functional.pad(counts.cumsum(0), (1, 0)).int()
+    rows, rows_max = int(off[-1]), 2 * t
+    x = torch.randn(t, d, device='cuda', generator=g).bfloat16()
+    xp = x.repeat(2, 1)
+    w12 = (torch.randn(e, 2 * h, d, device='cuda', generator=g) * 0.03).bfloat16()
+    w3 = (torch.randn(e, d, h, device='cuda', generator=g) * 0.04).bfloat16()
+    b12 = torch.zeros(e, 2 * h, device='cuda').bfloat16()
+    b3 = torch.zeros(e, d, device='cuda').bfloat16()
+    hid = torch.empty(rows_max, h, device='cuda', dtype=torch.bfloat16)
+    out = torch.empty(rows_max, d, device='cuda', dtype=torch.bfloat16)
+    flop = 2 * d * 2 * h * rows
+    def k5(which):  # 1: K5a alone, 2: K5b alone
+        me._launch('moe_experts', xp.data_ptr(), w12.data_ptr(), b12.data_ptr(),
+                   w3.data_ptr(), b3.data_ptr(), off.data_ptr(), hid.data_ptr(),
+                   out.data_ptr(), rows_max, d, h, e, which,
+                   me._sm_count(xp.device), device=xp.device)
+    ms_a = device_ms(lambda: k5(1))
+    ms_b = device_ms(lambda: k5(2))
+    print(f'K5 T={t} rows={rows} (counts {counts.tolist()}): K5a {ms_a:.4f} ms '
+          f'= {flop / ms_a / 1e9:.1f} TFLOP/s, K5b {ms_b:.4f} ms = '
+          f'{flop / 2 / ms_b / 1e9:.1f} TFLOP/s, both '
+          f'{1.5 * flop / (ms_a + ms_b) / 1e9:.1f} TFLOP/s', flush=True)
+    # a routing with the same shares: each token's two experts drawn from
+    # them, queued slot-major as nn/moe.py's route() queues them
+    idx = torch.multinomial(share.expand(t, e), 2, generator=g)
+    flat = (torch.arange(e, device='cuda')[:, None] == idx.t().reshape(1, -1)).int()
+    pos = ((flat.cumsum(1) - flat) * flat).sum(0).reshape(2, t).t()
+    keep = pos < cap
+    ms_disp = device_ms(lambda: me.dispatch(x, idx, pos, keep, cap, e))
+    poff, row, _ = me.dispatch(x, idx, pos, keep, cap, e)
+    gate = torch.rand(t, 2, device='cuda', generator=g).bfloat16()
+    ms_comb = device_ms(lambda: me.combine(out, row, gate))
+    buf = torch.randn(e, cap, d, device='cuda', generator=g).bfloat16()
+
+    def padded():
+        x1, x2 = torch.baddbmm(b12[:, None, :], buf, w12.transpose(1, 2)).chunk(2, -1)
+        return torch.baddbmm(b3[:, None, :], torch.nn.functional.silu(x1) * x2,
+                             w3.transpose(1, 2))
+    ms_pad = device_ms(padded)
+    print(f'K5 passes: dispatch {ms_disp:.4f} ms ({int(poff[-1])} rows), '
+          f'combine {ms_comb:.4f} ms; the padded baddbmm pair '
+          f'and SwiGLU over {e * cap} slots {ms_pad:.4f} ms', flush=True)
 
 
 if __name__ == '__main__':
