@@ -19,6 +19,12 @@ and reads the program's outputs only to judge them:
   reference logit lies below the reference's k-th best (0 inside the kept
   set), in logit units.  A sampled token is judged by its kept set, as a
   greedy one by the best alone.
+* ``token_miss_share`` (the same tokens): the share of them that lie
+  outside the reference's top-k.  A cell compares the numbers its
+  ``limits`` name: a cell whose sound runs draw a rare token just outside
+  the reference's kept set by a sizeable gap (a routed model whose
+  balanced router flips a token's experts under bf16 rounding) compares
+  this share in place of the widest gap.
 * ``sample_kl`` (rows of that call drawn from the seed, at its judged
   steps): the mean over positions of KL(softmax(ref) || softmax(prog)),
   between the guided logits the program's vocabulary head produced and the
@@ -179,24 +185,30 @@ def judge_generate(s, spec):
             ctl_img = float((low - want).abs().max())
     gaps = torch.cat(gaps) if gaps else torch.full((1,), float('nan'))
     kl = float(np.mean([e[1] for e in errs])) if errs else float('nan')
-    numbers += [('token_gap_max', float(gaps.max())), ('sample_kl', kl),
+    miss = float('nan') if bool(gaps.isnan().any()) else float(
+        (gaps > 0).float().mean())
+    numbers += [('token_gap_max', float(gaps.max())),
+                ('token_miss_share', miss), ('sample_kl', kl),
                 ('image_err_max', img_err)]
     if ctl:
-        numbers += [('token_gap_max.control', float(torch.cat(ctl).max())),
+        ctl_gaps = torch.cat(ctl)
+        numbers += [('token_gap_max.control', float(ctl_gaps.max())),
+                    ('token_miss_share.control',
+                     float((ctl_gaps > 0).float().mean())),
                     ('sample_kl.control', float(np.mean([e[1] for e in ctl_err]))),
                     ('image_err_max.control', ctl_img)]
+    limits = spec['limits']
     s.diagnostics = {
         'judged_tokens': int(gaps.numel()),
-        'token_miss_share': float((gaps > 0).float().mean()),
         'logit_err': max(e[0] for e in errs) if errs else None,
         'checked_call': c,
         'checked_steps': chosen}
+    s.diagnostics.update((n, v) for n, v in numbers
+                         if n.split('.')[0] not in limits)
     if ctl:
-        s.diagnostics['token_miss_share.control'] = float(
-            (torch.cat(ctl) > 0).float().mean())
         s.diagnostics['logit_err.control'] = max(e[0] for e in ctl_err)
-    limits = spec['limits']
-    return [(n, v, limits.get(n.split('.')[0])) for n, v in numbers]
+    return [(n, v, limits[n.split('.')[0]]) for n, v in numbers
+            if n.split('.')[0] in limits]
 
 
 def _png_levels(b64):

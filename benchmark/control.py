@@ -8,7 +8,7 @@ process (not part of a benchmark run):
 ``program``: for each seed a sound run, then the program's own lower-
 precision path (``Pipeline.quantize('w8a8')``) as the control.
 ``reference``: sound runs whose check also reads the reference computed
-in int8 in the program's place (``<number>.control``).
+in fp8 (``check.CONTROL``) in the program's place (``<number>.control``).
 Prints one JSON line a run: seed, mode, the compared numbers and the
 diagnostics; ``--out`` appends them to a file as well.
 """

@@ -7,7 +7,8 @@ deviation), ``context_pool`` (distinct context batches, used in turn).
 
 Each call decodes its final ids only and ends in ``torch.cuda.synchronize``;
 the window runs whole calls until ``seconds`` have passed (and at least
-until the call the check samples).  Forward pre-hooks on the transformer
+until the call the check samples) and keeps each call's duration for the
+result line's diagnostics (``call_s``).  Forward pre-hooks on the transformer
 and on the VQGAN's ``post_quant`` keep each step's input tokens and the
 decoded codes; a forward hook on the vocabulary head keeps, for the call
 and steps drawn from the seed (``check.sample``), a copy of the logits of
@@ -39,6 +40,10 @@ def setup(run):
     s.run, s.cfg, s.tr = run, cfg, tr
     dtype = program.DTYPES[cfg['compute_dtype']]
     w = seeded.make(cfg, run.rng_seed('weights'), run.device, dtype)
+    if w.router_fit:
+        print('router fit, kept share of the fit\'s tokens, draw -> fit: '
+              + ', '.join(f"{r['kept_before']:.4f} -> {r['kept_after']:.4f}"
+                          for r in w.router_fit), file=sys.stderr, flush=True)
     s.pipe = program.build_pipeline(cfg, w.tensors(), run.device)
     s.weights = w.to('cpu')   # the reference's copy, off the card meanwhile
     del w
@@ -112,13 +117,16 @@ def window(s, seconds):
     before = program.kernel_counters()
     t0 = time.perf_counter()
     calls = 0
+    ends = []
     while True:
         _call(s, calls)
         _sync(s.run.device)
         calls += 1
-        if time.perf_counter() - t0 >= seconds and calls > s.sample['call']:
+        ends.append(time.perf_counter() - t0)
+        if ends[-1] >= seconds and calls > s.sample['call']:
             break
     elapsed = time.perf_counter() - t0
+    s.call_s = [b - a for a, b in zip([0.0] + ends, ends)]
     after = program.kernel_counters()
     images = calls * s.tr['batch']
     return {'seconds': elapsed, 'calls': calls, 'images': images,

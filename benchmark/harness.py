@@ -181,7 +181,8 @@ def run_cell(cell, seed, seconds, trace, device, t_start, control=None):
         from devtrace import breakdown
         result['breakdown'] = breakdown(red)
     result['diagnostics'] = dict(getattr(state, 'diagnostics', {}),
-                                 check_s=t_check, counters=counters)
+                                 check_s=t_check, counters=counters,
+                                 call_s=getattr(state, 'call_s', None))
     result['compared'] = {n: {'value': v, 'limit': lim} for n, v, lim in numbers}
     return result, numbers
 

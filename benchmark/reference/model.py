@@ -140,13 +140,9 @@ def routed_ffn(W, p, x, cfg, lowp=None):
     return y.reshape(shape), 1.0 - keep.float().mean()
 
 
-def transformer(W, cfg, tokens, context, lowp=None, keeps=None):
-    """Logits (B, L, V) in fp32 of the stage-2 transformer on latent tokens
-    (B, L, in_dim); ``context`` (B, M, Dc) or None.  ``keeps``: in
-    training, the dropout keep-masks of the attention outputs, in call order
-    (attn1, attn2 of each layer)."""
-    keeps = iter(keeps) if keeps is not None else None
-    rate = cfg['dropout'] if keeps is not None else 0.0
+def embed(W, tokens, context, lowp=None):
+    """The first block's input from latent tokens (B, L, in_dim), and the
+    context (B, M, Dc) or None as the blocks read it."""
     p = 'transformer.'
     x = linear(tokens.float(), W[p + 'token_proj.weight'],
                W[p + 'token_proj.bias'], lowp) + W[p + 'pos_embed'].float()
@@ -154,18 +150,39 @@ def transformer(W, cfg, tokens, context, lowp=None, keeps=None):
         context = context.float()
         if p + 'context_proj.weight' in W:
             context = linear(context, W[p + 'context_proj.weight'], lowp=lowp)
+    return x, context
+
+
+def attend(W, cfg, i, x, context, lowp=None, keeps=None, rate=0.0):
+    """``x`` after block ``i``'s two attention sub-layers; ``keeps`` an
+    iterator over their dropout keep-masks, or None."""
+    q = f'transformer.layers.{i}.'
     heads = cfg['num_head']
+    x = x + attention(W, q + 'attn1.', layer_norm(
+        x, W[q + 'norm1.weight'], W[q + 'norm1.bias']), None, heads, lowp,
+        keep=next(keeps) if keeps else None, rate=rate)
+    return x + attention(W, q + 'attn2.', layer_norm(
+        x, W[q + 'norm2.weight'], W[q + 'norm2.bias']), context, heads,
+        lowp, keep=next(keeps) if keeps else None, rate=rate)
+
+
+def transformer(W, cfg, tokens, context, lowp=None, keeps=None,
+                routed=routed_ffn):
+    """Logits (B, L, V) in fp32 of the stage-2 transformer on latent tokens
+    (B, L, in_dim); ``context`` (B, M, Dc) or None.  ``keeps``: in
+    training, the dropout keep-masks of the attention outputs, in call order
+    (attn1, attn2 of each layer).  ``routed``: the routed FFN, called as
+    ``routed_ffn`` is."""
+    keeps = iter(keeps) if keeps is not None else None
+    rate = cfg['dropout'] if keeps is not None else 0.0
+    p = 'transformer.'
+    x, context = embed(W, tokens, context, lowp)
     for i in range(cfg['depth']):
         q = f'{p}layers.{i}.'
-        x = x + attention(W, q + 'attn1.', layer_norm(
-            x, W[q + 'norm1.weight'], W[q + 'norm1.bias']), None, heads, lowp,
-            keep=next(keeps) if keeps else None, rate=rate)
-        x = x + attention(W, q + 'attn2.', layer_norm(
-            x, W[q + 'norm2.weight'], W[q + 'norm2.bias']), context, heads,
-            lowp, keep=next(keeps) if keeps else None, rate=rate)
+        x = attend(W, cfg, i, x, context, lowp, keeps, rate)
         h = layer_norm(x, W[q + 'norm3.weight'], W[q + 'norm3.bias'])
         if cfg.get('num_experts'):
-            x = x + routed_ffn(W, q + 'ffnet.', h, cfg, lowp)[0]
+            x = x + routed(W, q + 'ffnet.', h, cfg, lowp)[0]
         else:
             x = x + swiglu(h, W[q + 'ffnet.w12.weight'],
                            W[q + 'ffnet.w12.bias'], W[q + 'ffnet.w3.weight'],
@@ -174,13 +191,14 @@ def transformer(W, cfg, tokens, context, lowp=None, keeps=None):
     return linear(x, W[p + 'to_logits.weight'], W[p + 'to_logits.bias'], lowp)
 
 
-def guided_logits(W, cfg, tokens, context, scale, lowp=None):
+def guided_logits(W, cfg, tokens, context, scale, lowp=None,
+                  routed=routed_ffn):
     """``u + s (c - u)``: the conditional pass on ``context``, the
     unconditional one with attn2 self-attending."""
-    cond = transformer(W, cfg, tokens, context, lowp)
+    cond = transformer(W, cfg, tokens, context, lowp, routed=routed)
     if scale is None:
         return cond
-    uncond = transformer(W, cfg, tokens, None, lowp)
+    uncond = transformer(W, cfg, tokens, None, lowp, routed=routed)
     return uncond + scale * (cond - uncond)
 
 

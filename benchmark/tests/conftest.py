@@ -46,6 +46,7 @@ def tiny_config(name, moe=False):
 
 TINY_TRAFFIC = {
     't2i_b32': dict(batch=4, timesteps=4, context_len=5),
+    't2i_b64': dict(batch=4, timesteps=4, context_len=5),
     'http_poisson': dict(rate=6.0, timesteps=4, max_batch=4, grace=30),
     'train_b32': dict(batch=4, corpus=16, context_len=5),
 }

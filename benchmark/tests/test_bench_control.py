@@ -1,6 +1,6 @@
 """The control, at a cell's own size on the card, comes out not correct on
 three seeds: the program's own int8 path (``Pipeline.quantize('w8a8')``)
-for the dense cell; the reference computed in int8 in the program's place
+for the dense cell; the reference computed in fp8 in the program's place
 for the MoE cell (``control.py``)."""
 
 import time
@@ -8,7 +8,7 @@ import time
 import harness
 import pytest
 
-CONTROLS = {'v1_t2i_b32': 'program', 'moe_t2i_b32': 'reference'}
+CONTROLS = {'v1_t2i_b32': 'program', 'moe_lb_t2i_b64': 'reference'}
 
 
 @pytest.mark.card

@@ -49,7 +49,8 @@ def altered(pipe, ids, **kw):
 
 SAMPLING = {'unchanged': unchanged, 'half_batch': half_batch,
             'altered': altered}
-CELLS = [('v1_t2i_b32', False, 't2i_b32'), ('moe_t2i_b32', True, 't2i_b32'),
+CELLS = [('v1_t2i_b32', False, 't2i_b32'),
+         ('moe_lb_t2i_b64', True, 't2i_b64'),
          ('v1_http_poisson', False, 'http_poisson')]
 
 

@@ -57,7 +57,7 @@ TRAIN_COUNTERS = {'steps': 10, 'dropped': 1, 'launches': {}}
 
 def test_batch_readers(monkeypatch):
     monkeypatch.setattr(spans, 'snapshot', _moe_snap)
-    ctx = _ctx('moe_t2i_b32', BATCH_COUNTERS)
+    ctx = _ctx('moe_lb_t2i_b64', BATCH_COUNTERS)
     want = {'moe_expert_ms_per_step.batch': 75.0,      # 2.4 s / 32 steps
             'moe_move_ms_per_step.batch': 75.0,        # (4.8 - 2.4) / 32
             'moe_fill.batch': 46.0,
@@ -88,7 +88,7 @@ def test_batch_readers_read_nothing(monkeypatch, case):
         monkeypatch.undo()
         monkeypatch.delattr(profiling, 'snapshot')
     counters = dict(BATCH_COUNTERS, calls=0 if case == 'no_calls' else 2)
-    ctx = _ctx('moe_t2i_b32', counters,
+    ctx = _ctx('moe_lb_t2i_b64', counters,
                {'platform': 'cpu', 'kind': 'cpu'} if case == 'cpu' else GPU)
     read = {n: _reader(n).read(ctx) for n in BATCH}
     if case == 'count':            # the sampler's own spans still agree
@@ -121,7 +121,7 @@ def test_a_traced_cpu_run_reads_none_and_raises_nothing(tmp_path):
     from paintmind_tpu_torch.utils import profiling
     profiling.reset()
     cell = add_tiny_cell(str(tmp_path), 'spans_cpu_cell', moe=True,
-                         limits_from='moe_t2i_b32')
+                         limits_from='moe_lb_t2i_b64')
     res, _ = harness.run_cell(cell, 2 ** 31 + 17, 0.2, 1, 'cpu', time.time())
     assert not set(BATCH) & set(res['metrics'])
     # the program recorded the window's spans all the same
@@ -135,7 +135,7 @@ def test_a_traced_cpu_run_reads_none_and_raises_nothing(tmp_path):
 
 
 CARD_CELLS = [('spans_dense', False, 'v1_t2i_b32', 't2i_b32'),
-              ('spans_moe', True, 'moe_t2i_b32', 't2i_b32'),
+              ('spans_moe', True, 'moe_lb_t2i_b64', 't2i_b64'),
               ('spans_train', False, 'v1_train_b32', 'train_b32')]
 
 

@@ -53,7 +53,7 @@ def test_reduce(tmp_path):
 
 def test_readers(tmp_path):
     red = _trace(tmp_path)
-    cell = harness.resolve('moe_t2i_b32')
+    cell = harness.resolve('moe_lb_t2i_b64')
     dev = {'platform': 'gpu', 'kind': 'NVIDIA H100 80GB HBM3'}
     ctx = harness.ReaderContext(cell=cell, trace=red, device=dev,
                                 counters={'calls': 1, 'guided': True,

@@ -5,8 +5,10 @@ stage-1 ViT-VQGAN, the stage-2 transformer and the mask token), worked out
 here from the configuration file alone.  One ``torch.randn`` draws every
 random number in the served type; each tensor is then a scaled view of it:
 Xavier-normal matrices, small random biases, LayerNorm gains near 1, the
-position tables at ``dim ** -0.5``, a unit-normal codebook.  The program
-and the reference receive the same values.
+position tables at ``dim ** -0.5``, a unit-normal codebook.  A
+configuration with a ``router_init`` then has its routers fitted to a
+trained router's load (``router_fit.py``).  The program and the reference
+receive the same values.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 
 import torch
 
+import router_fit
 from flops import swiglu_hidden
 
 
@@ -104,7 +107,10 @@ def _scale(shape, kind):
 
 class Weights:
     """Every tensor of a configuration as a view of one flat buffer, so
-    that the whole set moves between host and card in one copy."""
+    that the whole set moves between host and card in one copy.
+    ``router_fit``: the fit's report a routed layer, where there was one."""
+
+    router_fit = None
 
     def __init__(self, flat, items):
         self.flat, self.items = flat, items
@@ -123,7 +129,11 @@ class Weights:
 
 
 def make(config, seed, device, dtype):
-    """The seeded ``Weights`` of ``config`` on ``device`` in ``dtype``."""
+    """The seeded ``Weights`` of ``config`` on ``device`` in ``dtype``,
+    its routers fitted where the configuration has a ``router_init``.  A
+    configuration with a ``weights_seed`` is drawn from that seed whatever
+    ``seed`` is."""
+    seed = config.get('weights_seed', seed)
     items = spec(config)
     total = sum(math.prod(s) for _, s, _ in items)
     g = torch.Generator(device=device).manual_seed(int(seed))
@@ -134,6 +144,8 @@ def make(config, seed, device, dtype):
             t.mul_(_scale(shape, kind))
             if kind == 'ln_w':
                 t.add_(1.0)
+    if config.get('router_init'):
+        w.router_fit = router_fit.fit(w, config, seed)
     return w
 
 
