@@ -11,7 +11,7 @@ Phases, each printed on its own line(s); any failure raises and the script
 exits non-zero with no result line:
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. builds kernels K1-K4 from the sources in this checkout (one ``nvcc``
+  2. builds kernels K1-K6 from the sources in this checkout (one ``nvcc``
      per CUDA source, all at once), prints each kernel's registers, shared
      memory and spills, and checks in the compiled code that the bf16
      attention kernels run their products on the tensor cores (``HGMMA`` in
@@ -21,6 +21,9 @@ exits non-zero with no result line:
      the PyTorch library call, beside the least time the card could take;
      K1 and K4 also at head dims 128 and 32 and at N = M = 4096 (the 512²
      variant; K4 in bf16 only), K2 at code dims 8, 16, 12, 48 and 100;
+     sdar-30b-a3b's calls: K1 over grouped K/V read in place from a KV
+     cache, K5 at 128 bias-free experts of 768 (dropless), K6 (QK-norm
+     and RoPE) into the cache; fp32 K1 is timed at one shape only;
   4. stage 1: the shipped vit-s-vqgan weights reconstruct 8 seeded 256²
      images through the kernels and through the plain versions; then a
      registered model of head dim 16 and code dim 8 runs ``generate``,
@@ -135,10 +138,11 @@ from paintmind_tpu_torch.models import quantize as tq
 from paintmind_tpu_torch.models import vqmodel as tvm
 from paintmind_tpu_torch.models.pipeline import (
     _transformer_logits, ids_to_tokens, pipeline_loss)
-from paintmind_tpu_torch.nn.core import init_module_
+from paintmind_tpu_torch.nn.core import init_module_, rope_tables
 from paintmind_tpu_torch.ops import _build
 from paintmind_tpu_torch.ops import flash_attention as fa
 from paintmind_tpu_torch.ops import moe_experts as me
+from paintmind_tpu_torch.ops import rope as rope_ops
 from paintmind_tpu_torch.ops import sampling as sm
 from paintmind_tpu_torch.ops import vq_lookup as vq
 from paintmind_tpu_torch.serving import (GenerateRequest, GenerationEngine,
@@ -161,7 +165,8 @@ CARD = ''  # name and power limit as nvidia-smi gives them; set in main()
 # kernel -> (module, name of its launch counter there)
 KERNEL_COUNTERS = {'K1': (fa, 'launches'), 'K2': (vq, 'launches'),
                    'K3': (sm, 'launches'), 'K3r': (sm, 'launches_radix'),
-                   'K4': (fa, 'launches_bwd'), 'K5': (me, 'launches')}
+                   'K4': (fa, 'launches_bwd'), 'K5': (me, 'launches'),
+                   'K6': (rope_ops, 'launches')}
 
 
 def log(*parts):
@@ -257,6 +262,13 @@ ATTN_CASES = (('stage-2 self', 8, 1024, 1024, 16, 64, True),
 # the 512² variant's self-attention (4096 tokens): K1 as the 512² phase
 # runs it, K4 as 512² training would (bf16 only)
 LONG_CASES = (('512² self', 2, 4096, 4096, 16, 64, True),)
+# (label, B, N, M, cache rows, H, Hkv, D, timed): K1 over grouped K/V read in
+# place from a KV cache, as sdar-30b-a3b's last block reads it (its 64
+# queries over all 1101 rows), and ragged (a view shorter than its cache, the
+# fp32 kernel and head dim 64 too)
+GQA_CASES = (('sdar cache', 64, 64, 1101, 1101, 32, 4, 128, True),
+             ('ragged cache', 3, 70, 141, 200, 8, 2, 128, False),
+             ('ragged cache', 3, 70, 141, 200, 6, 3, 64, False))
 
 
 def check_k1(g):
@@ -310,7 +322,8 @@ def check_k1(g):
                     f'{str(dtype)[6:]}: max_abs_err={max_err:.3e} '
                     f'mean_abs_err={mean_err:.3e}{tiled} '
                     f'lse_max_abs_err={lse_err:.3e}')
-            if timed:
+            # fp32 is timed at the one shape PERF.md keeps (H = 8, D = 128)
+            if timed and (dtype == torch.bfloat16 or (h, d) == (8, 128)):
                 ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
                 plain_ms = time_ms(
                     lambda: fa.flash_attention_plain(q, k, v, scale), 5)
@@ -328,7 +341,58 @@ def check_k1(g):
                                  bound_ms=bms, bound_by=by, library_ms=lib_ms)
             log(line)
             del q, k, v, out, out2, lse, ref, err, want_lse
+    check_k1_gqa(g)
     return entry
+
+
+def check_k1_gqa(g):
+    """K1 on grouped K/V read in place from a cache (``GQA_CASES``): the
+    view [:, :M] of a (B, rows, Hkv, D) cache whose rows past M hold NaN
+    (a read past M would show), against ``flash_attention_plain`` on the
+    K/V repeated per query head (``_repeat_kv``) with the gates of
+    ``check_k1``, and against the tiled emulation in bf16.  The timed
+    shape beside its bound (4 B H N M D operations; q, o, and K and V once
+    a KV head) and SDPA on the repeated, contiguous K/V."""
+    for label, b, n, m, rows, h, hk, d, timed in GQA_CASES:
+        scale = d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, n, h, d, device='cuda', generator=g).to(dtype)
+            kc = torch.full((b, rows, hk, d), float('nan'), device='cuda',
+                            dtype=dtype)
+            vc = torch.full_like(kc, float('nan'))
+            kc[:, :m] = torch.randn(b, m, hk, d, device='cuda', generator=g)
+            vc[:, :m] = torch.randn(b, m, hk, d, device='cuda', generator=g)
+            k, v = kc[:, :m], vc[:, :m]
+            out = fa.flash_attention(q, k, v, scale)
+            kr, vr = fa._repeat_kv(q, k, v)
+            ref = fa.flash_attention_plain(q, kr.contiguous(), vr.contiguous(),
+                                           scale)
+            err = (out.float() - ref.float()).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            check(bool(torch.isfinite(out).all()), f'K1 {label} not finite')
+            line = (f'K1 {label} B={b} N={n} M={m} of {rows} rows H={h} '
+                    f'Hkv={hk} D={d} {str(dtype)[6:]}: max_abs_err={max_err:.3e} '
+                    f'mean_abs_err={mean_err:.3e}')
+            if dtype == torch.float32:
+                check(max_err <= 1e-4, f'K1 {label} fp32 max err {max_err}')
+            else:
+                emu = fa.flash_attention_tiled(q, k, v, scale)[0]
+                emu_err = (out.float() - emu.float()).abs().mean().item()
+                check(mean_err <= 5e-3, f'K1 {label} bf16 mean err {mean_err}')
+                check(emu_err <= 1e-5, f'K1 {label} bf16 mean err against '
+                      f'the tiled emulation {emu_err}')
+                line += f' vs_tiled_mean_abs={emu_err:.3e}'
+                if timed:
+                    ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), 20)
+                    kt, vt = (t.contiguous().transpose(1, 2) for t in (kr, vr))
+                    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), kt, vt, scale=scale), 20)
+                    nbytes = (2 * b * n * h * d + 2 * b * m * hk * d) * 2
+                    bms, by = bound(nbytes, 4 * b * h * n * m * d, dtype)
+                    line += (f' ms={ms:.4f} sdpa_repeated_kv_ms={lib_ms:.4f} '
+                             f'bound_ms={bms:.4f} ({by}); {CARD}')
+            log(line)
+            del q, kc, vc, out, ref, err
 
 
 def check_k4(g):
@@ -562,7 +626,220 @@ def check_k5(g):
         notes.append(line)
         del x, xp, out, y, ref_y
     log('K5 ' + '; '.join(notes))
+    check_k5_sdar(g)
     return entry
+
+
+# (label, B, N, H, D, into a cache view): sdar-30b-a3b's q and k of a block
+# pass (k written into its rows of the KV cache), ragged ones
+ROPE_CASES = (('sdar q', 64, 64, 32, 128, False),
+              ('sdar k', 64, 64, 4, 128, True),
+              ('ragged', 3, 70, 6, 64, True))
+
+
+def check_k6(g):
+    """K6 (``ops/rope.py``: QK-norm and the rotary embedding in one pass)
+    against ``norm_rope_plain`` at ``ROPE_CASES``, then the SDAR stack's
+    graphed passes (``check_sdar_graphs``): every element within one
+    bf16 step (8e-3 relative + 1e-3: both round once, from fp32 sums in
+    another order), a cache view's other rows untouched, a second run
+    bit-equal.  Times the sdar shapes beside their bound (2 bytes read and 2
+    written an element) and the plain version; returns sdar q's figures."""
+    notes, result = [], None
+    for label, b, n, h, d, cached in ROPE_CASES:
+        x = torch.randn(b, n, h, d, device='cuda', generator=g).bfloat16() * 3
+        w = (1 + 0.1 * torch.randn(d, device='cuda', generator=g)).bfloat16()
+        cos, sin = rope_tables(range(1000, 1000 + n), d, 1e6, device='cuda')
+        ref = rope_ops.norm_rope_plain(x, cos, sin, w, 1e-6)
+        if cached:
+            cache = torch.full((b, n + 77, h, d), float('nan'), device='cuda',
+                               dtype=torch.bfloat16)
+            out = rope_ops.norm_rope(x, cos, sin, w, 1e-6,
+                                     out=cache[:, 77:77 + n])
+            check(bool(cache[:, :77].isnan().all()),
+                  f'K6 {label}: wrote outside its rows of the cache')
+        else:
+            out = rope_ops.norm_rope(x, cos, sin, w, 1e-6)
+        check(torch.equal(out, rope_ops.norm_rope(x, cos, sin, w, 1e-6)),
+              f'K6 {label}: a second run gave other bits')
+        diff = (out.float() - ref.float()).abs()
+        ok = diff <= 8e-3 * ref.float().abs() + 1e-3
+        check(bool(ok.all()), f'K6 {label}: {int((~ok).sum())} elements off '
+              f'the plain version, max abs {diff.max().item()}')
+        line = f'{label} ({b}, {n}, {h}, {d}): max abs {diff.max().item():.3e}'
+        if label.startswith('sdar'):
+            ms = time_ms(lambda: rope_ops.norm_rope(x, cos, sin, w, 1e-6), 20)
+            plain = time_ms(lambda: rope_ops.norm_rope_plain(x, cos, sin, w,
+                                                             1e-6), 10)
+            bms, by = bound(4 * x.numel(), 12 * x.numel(), torch.bfloat16)
+            line += (f' ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.4f} '
+                     f'({by})')
+            if result is None:
+                result = dict(max_abs_err=diff.max().item(), ms=ms,
+                              plain_ms=plain, bound_ms=bms, bound_by=by,
+                              library_ms=None)
+        notes.append(line)
+    log('K6 ' + '; '.join(notes) + f'; {CARD}')
+    check_sdar_graphs(g)
+    return result
+
+
+def check_sdar_graphs(g):
+    """sdar-30b-a3b's layer stack at its published widths, two layers deep,
+    B = 8: the prompt's pass and three blocks' passes run eagerly (spans
+    recording), then twice more (the first captures each position's CUDA
+    graph after its eager run, the second replays them): logits and the
+    whole KV cache bit-equal all three times."""
+    from paintmind_tpu_torch.models.sdar_transformer import (
+        SDARTransformer, SDARTransformerConfig)
+    tr = SDARTransformer(SDARTransformerConfig(depth=2), device='cuda',
+                         dtype=torch.bfloat16)
+    tr.init_weights_(g)
+    b, m = 8, 77
+    ctx = torch.randn(b, m, 1024, device='cuda', generator=g).bfloat16()
+    toks = [torch.randn(b, 64, 32, device='cuda', generator=g).bfloat16()
+            for _ in range(3)]
+    cache = tr.cache(b, m + 1024, dtype=torch.bfloat16, device='cuda')
+
+    def passes():
+        with torch.no_grad():
+            tr.prefill(ctx, cache)
+            out = [tr(t, cache, m + 64 * j).clone() for j, t in enumerate(toks)]
+        torch.cuda.synchronize()
+        return out, [t[:, :m + 64 * len(toks)].clone() for kv in cache for t in kv]
+
+    with profiling.recording():
+        eager = passes()
+    profiling.reset()
+    captured, replayed = passes(), passes()
+    check(len(tr._graphs) == 1 + len(toks), f'sdar graphs: {len(tr._graphs)} '
+          f'captured, expected {1 + len(toks)}')
+    for what, got in (('captured', captured), ('replayed', replayed)):
+        check(all(torch.equal(a, c) for a, c in zip(eager[0] + eager[1],
+                                                     got[0] + got[1])),
+              f'sdar graphs: the {what} passes differ from the eager ones')
+    log(f'sdar graphs: {len(tr._graphs)} positions captured, logits and KV '
+        f'cache bit-equal eager / captured / replayed')
+
+
+def k5_against_fp32(xp, off, weights, what):
+    """K5 and ``grouped_swiglu_plain`` each against the fp32 products with
+    H unrounded, expert by expert: the kernel's largest and mean absolute
+    errors within 1.25 and 1.1 times the plain version's, and a second run
+    bit-equal.  At D = 2048 the two round H in places whose fp32 sums
+    differ in order, and a flipped rounding of an H element moves O by up
+    to a few bf16 steps of small elements (measured: 50 of 67 M elements
+    over two steps apart, kernel and plain both 9.34e-3 from the fp32
+    products at most), so an elementwise gate between the two does not
+    hold.  Returns (max abs err against plain, rows)."""
+    got = me.grouped_swiglu(xp, off, *weights)
+    check(torch.equal(got, me.grouped_swiglu(xp, off, *weights)),
+          f'K5 {what}: a second run gave other bits')
+    ref = me.grouped_swiglu_plain(xp, off, *weights)
+    w12, _, w3, _ = weights
+    hdim = w12.shape[1] // 2
+    bounds = off.tolist()
+    errs = {'kernel': [0.0, 0.0], 'plain': [0.0, 0.0]}
+    for e in range(len(bounds) - 1):
+        lo, hi = bounds[e], bounds[e + 1]
+        if lo == hi:
+            continue
+        a = xp[lo:hi].float() @ w12[e].float().t()
+        o32 = (F.silu(a[:, :hdim]) * a[:, hdim:]) @ w3[e].float().t()
+        for name, o in (('kernel', got), ('plain', ref)):
+            d = (o[lo:hi].float() - o32).abs()
+            errs[name][0] = max(errs[name][0], d.max().item())
+            errs[name][1] += d.sum().item()
+    rows = bounds[-1]
+    (kmax, ksum), (pmax, psum) = errs['kernel'], errs['plain']
+    check(bool(torch.isfinite(got[:rows]).all()) and kmax <= 1.25 * pmax
+          and ksum <= 1.1 * psum,
+          f'K5 {what}: against the fp32 products max {kmax:.3e} mean '
+          f'{ksum / rows / got.shape[1]:.3e}, the plain version max {pmax:.3e} '
+          f'mean {psum / rows / got.shape[1]:.3e}')
+    log(f'K5 {what} against the fp32 products: kernel max {kmax:.3e} mean '
+        f'{ksum / rows / got.shape[1]:.3e}, plain max {pmax:.3e} mean '
+        f'{psum / rows / got.shape[1]:.3e}')
+    return (got[:rows].float() - ref[:rows].float()).abs().max().item(), rows
+
+
+def check_k5_sdar(g):
+    """K5 at sdar-30b-a3b's routed layer (D = 2048, 128 bias-free experts of
+    h = 768, top-8, dropless), on the card: the layer's routing of T = 4096
+    (a block pass at B = 64) and T = 4928 (the prompt's pass) N(0, 1) bf16
+    tokens by a seeded router; ``dispatch`` equals ``dispatch_plain`` and
+    drops nothing; K5 (its last K5a column tile ragged: 768 = 5 1/3 x 144)
+    as near the fp32 products as ``grouped_swiglu_plain``
+    (``k5_against_fp32``); the whole
+    layer, packed, as near the layer computed in fp32 as the padded path (a
+    gradient recorded).  Times at T = 4096: K5 beside its bound (6 D h a row, or
+    the hit experts' weights and the rows' bytes) and the padded pair over
+    the (128, 4096, 2048) buffer that dropless capacity gives it."""
+    from paintmind_tpu_torch.nn import moe as tmoe
+    d, e, hidden, k = 2048, 128, 768, 8
+    layer = tmoe.MoESwiGLU(d, None, e, num_selected=k, capacity_factor=None,
+                           expert_hidden=hidden, expert_bias=False,
+                           device='cuda')
+    init_module_(layer, g)
+    for lin in (layer.experts.w12, layer.experts.w3):
+        lin.init_weights_(g)
+    layer32 = tmoe.MoESwiGLU(d, None, e, num_selected=k, capacity_factor=None,
+                             expert_hidden=hidden, expert_bias=False,
+                             device='cuda')
+    layer.bfloat16()
+    layer32.load_state_dict({n: t.float() for n, t in layer.state_dict().items()})
+    ex = layer.experts
+    weights = (ex.w12.weight.detach(), None, ex.w3.weight.detach(), None)
+    notes = []
+    for t in (4096, 4928):
+        x = torch.randn(t, d, device='cuda', generator=g).bfloat16()
+        with torch.no_grad():
+            _, _, gate, idx, pos, keep, cap = tmoe.route(layer, x, k, None)
+            off, row, xp = me.dispatch(x, idx, pos, keep, cap, e)
+            p_off, row_token, p_row = me.pack_rows_plain(idx, pos, keep, cap, e)
+        rows = int(off[-1])
+        check(cap == t and rows == k * t and bool(keep.all()),
+              f'K5 sdar T={t}: dropless routing dropped: {rows} rows of {k * t}')
+        check(torch.equal(off, p_off) and torch.equal(row, p_row)
+              and torch.equal(xp[:rows], x[row_token[:rows].long()]),
+              f'K5 sdar T={t}: dispatch differs from dispatch_plain')
+        err, _ = k5_against_fp32(xp, off, weights, f'sdar T={t}')
+        with torch.no_grad():
+            y_packed, _ = tmoe.moe_swiglu(layer, x, k, None, 'gather')
+            y32, _ = tmoe.moe_swiglu(layer32, x.float(), k, None, 'gather')
+        with torch.enable_grad():
+            y_padded, _ = tmoe.moe_swiglu(layer, x, k, None, 'gather')
+        lerr = (y_packed.float() - y_padded.detach().float()).abs().max().item()
+        e_packed = (y_packed.float() - y32).abs().max().item()
+        e_padded = (y_padded.detach().float() - y32).abs().max().item()
+        # as near the fp32 layer as the padded path: an elementwise gate
+        # between the two fails on roundings of H, as in k5_against_fp32
+        check(e_packed <= 1.25 * e_padded, f'K5 sdar T={t}: the packed layer '
+              f'{e_packed:.3e} from the fp32 layer, the padded {e_padded:.3e}')
+        del y_padded, y32
+        hit = int((off[1:] > off[:-1]).sum())
+        line = (f'sdar T={t} ({rows} rows, {hit} experts hit): max abs '
+                f'{err:.3e}, layer packed vs padded {lerr:.3e}, from the fp32 '
+                f'layer {e_packed:.3e} and {e_padded:.3e}')
+        if t == 4096:
+            ms = time_ms(lambda: me.grouped_swiglu(xp, off, *weights), 20)
+            buf = torch.randn(e, cap, d, device='cuda', generator=g).bfloat16()
+            w12, _, w3, _ = weights
+
+            def padded():  # StackedSwiGLU.forward on the (E, C, D) buffer
+                x1, x2 = torch.bmm(buf, w12.transpose(1, 2)).chunk(2, dim=-1)
+                return torch.bmm(F.silu(x1) * x2, w3.transpose(1, 2))
+            lib_ms = time_ms(padded, 3)
+            del buf
+            ops = 6 * d * hidden * rows
+            nbytes = (hit * 3 * d * hidden + rows * (2 * d + 2 * hidden)) * 2
+            bms, by = bound(nbytes, ops, torch.bfloat16)
+            line += (f'; ms={ms:.4f} (K5a + K5b) = {ops / ms / 1e9:.1f} TFLOP/s '
+                     f'bound_ms={bms:.4f} ({by}) padded_pair_ms={lib_ms:.4f} '
+                     f'({e * cap} slots); {CARD}')
+        notes.append(line)
+        del x, xp
+    log('K5 ' + '; '.join(notes))
 
 
 def k2_compare(z, e, what):
@@ -1380,6 +1657,75 @@ def moe_phase(totals):
         f'{peak:.2f} GiB; {CARD}')
     del opt, step, pipe
     return half
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: block diffusion (sdar-30b-a3b)
+# ---------------------------------------------------------------------------
+
+def sdar_phase(totals):
+    """``Pipeline.generate`` of sdar-30b-a3b at its published widths, two
+    layers deep (the benchmark's cell runs all 48), over the trained
+    stage 1, B = 8: 16 blocks of 64 codes, 4 steps and a commit pass each.
+    The first call runs each position's stack eagerly and captures its
+    graph, the second replays them: both launch K1 once a layer of every
+    pass and eight times in the decode, K5 once and K6 twice a layer of
+    every pass, K3 once a step, and give the same ids and images from one
+    seed.  A third, recording, counts each K1 call's operations and K5's
+    rows (dropless: k a token) through the replays."""
+    pt.register_version('smoke-sdar', dict(pt.ver2cfg['sdar-30b-a3b'],
+                                           depth=2))
+    pipe = pt.create_model('pipeline', 'smoke-sdar', pretrained=False,
+                           stage1_checkpoint_path=ASSET, text_encoder=None,
+                           param_dtype=torch.bfloat16,
+                           compute_dtype=torch.bfloat16, seed=5)
+    cfg = pipe.config
+    depth, dec = cfg.depth, cfg.vqc.dec.depth
+    blocks = cfg.num_tokens // cfg.block_len
+    passes = 1 + blocks * (cfg.block_steps + 1)
+    want = {'K1': depth * passes + dec, 'K3': blocks * cfg.block_steps,
+            'K5': depth * passes, 'K6': 2 * depth * passes}
+    b, m = 8, 77
+    g = torch.Generator(device='cuda').manual_seed(11)
+    ctx = torch.randn(b, m, cfg.t5_dim, device='cuda', generator=g).bfloat16()
+    out = []
+    for what in ('eager, captured', 'replayed'):
+        gen = torch.Generator(device='cuda').manual_seed(12)
+        imgs, s = drive(lambda: pipe.generate(text=ctx, generator=gen)[-1],
+                        want, totals, f'sdar-30b-a3b (2 layers) generate B=8 '
+                        f'{what}')
+        check_images(imgs, f'sdar {what} generate')
+        out.append((imgs, s))
+    check(torch.equal(out[0][0], out[1][0]),
+          'sdar generate: the replayed call gave other images')
+    check(len(pipe.transformer._graphs) == 1 + blocks,
+          f'sdar generate: {len(pipe.transformer._graphs)} graphs, '
+          f'expected {1 + blocks}')
+    profiling.reset()
+    with profiling.recording():
+        drive(lambda: pipe.generate(text=ctx, generator=g), want, totals,
+              'sdar-30b-a3b (2 layers) generate B=8 replayed, recording')
+    c = profiling.snapshot()['counters']
+    profiling.reset()
+    n, h, d = cfg.block_len, cfg.num_head, cfg.dim_head
+    keys = [m] + [m + n * (j + 1) for j in range(blocks)
+                  for _ in range(cfg.block_steps + 1)]
+    rows = [m] + [n] * (passes - 1)
+    ops = depth * sum(4 * b * h * r * k * d for r, k in zip(rows, keys))
+    dh = cfg.vqc.dec
+    ops += dec * 4 * b * dh.num_head * cfg.num_tokens ** 2 * dh.dim_head
+    routed = depth * b * sum(rows) * cfg.num_selected
+    check(c.get('pm.attn.ops') == ops and c.get('pm.moe.rows') == routed
+          and 0 < c.get('pm.moe.experts_hit', 0) <= depth * passes * 128,
+          f'sdar generate counters {c}: expected {ops} K1 operations, '
+          f'{routed} routed rows')
+    log(f'sdar-30b-a3b (2 layers, published widths) generate B=8: eager and '
+        f'captured {out[0][1]:.3f} s, replayed {out[1][1]:.3f} s, the same '
+        f'images; recording through the replays: {ops} K1 operations, '
+        f'{routed} routed rows, {int(c["pm.moe.experts_hit"])} experts hit '
+        f'of {depth * passes * 128}')
+    del pipe
+    gc.collect()
 
 
 # ---------------------------------------------------------------------------
@@ -3223,7 +3569,7 @@ KERNEL_LIBRARIES = {'K1': ('flash_attention',),
                     'K2': ('vq_lookup',), 'K3': ('sampling',),
                     'K3r': ('sampling',),
                     'K4': ('flash_attention', 'flash_attention_bwd'),
-                    'K5': ('moe_experts',)}
+                    'K5': ('moe_experts',), 'K6': ('rope',)}
 
 
 def main():
@@ -3244,7 +3590,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {'K1': check_k1, 'K2': check_k2, 'K3': check_k3,
-              'K3r': check_k3_radix, 'K4': check_k4, 'K5': check_k5}
+              'K3r': check_k3_radix, 'K4': check_k4, 'K5': check_k5,
+              'K6': check_k6}
     only = sys.argv[1:]
     multigpu_only = only == ['multigpu']
     if multigpu_only:
@@ -3297,6 +3644,7 @@ def main():
     w8a8.to('cpu')  # out of the later phases' peak memory
     serving.to('cpu')
     moe = phase('MoE', moe_phase, totals)  # returned on the host
+    phase('SDAR', sdar_phase, totals)
     before = torch.cuda.memory_allocated()
     phase('serving', serving_phase, totals)
     held = torch.cuda.memory_allocated() - before
@@ -3336,6 +3684,9 @@ def main():
         'K5': ('moe_experts (K5a w12 + SwiGLU, K5b w3)', 'cuda',
                'paintmind_tpu_torch/csrc/moe_experts.cu',
                'none (nn/moe.py experts, XLA in the JAX package)'),
+        'K6': ('norm_rope (QK-norm + RoPE)', 'cuda',
+               'paintmind_tpu_torch/csrc/rope.cu',
+               'none (the JAX package has no SDAR stack)'),
     }
     kernels = []
     for key, (name, route, source, replaces) in meta.items():

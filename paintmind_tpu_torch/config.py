@@ -144,6 +144,33 @@ pipeline_v1_moe_4e_config = {
     'num_experts': 4,
 }
 
+# Extension beyond the reference: SDAR-30B-A3B-Chat's decoder stack
+# (JetLM, https://huggingface.co/JetLM/SDAR-30B-A3B-Chat, config.json) at its
+# published widths as the stage-2 transformer, decoding the image codes by
+# block diffusion over a KV cache (models/sdar_transformer.py,
+# models/pipeline.generate_blocks).  Its text vocabulary is replaced by the
+# VQGAN's 8192 codes; block_len and block_steps are not published.
+pipeline_sdar_30b_a3b_config = {
+    'stage1': 'vit-s-vqgan',
+    't5': 't5-l',
+    'block': 'sdar',
+    'dim': 2048,
+    'dim_head': 128,
+    'num_head': 32,
+    'kv_heads': 4,
+    'depth': 48,
+    'mlp_dim': 6144,        # intermediate_size: no dense layer uses it
+    'dropout': 0.0,
+    'num_experts': 128,
+    'num_selected': 8,
+    'expert_hidden': 768,
+    'capacity_factor': None,  # dropless
+    'rope_theta': 1e6,
+    'rms_eps': 1e-6,
+    'block_len': 64,
+    'block_steps': 4,
+}
+
 ver2cfg = {
     'vit-s-vqgan': vit_s_vqgan_config,
     'vit-s-vqgan-512': vit_s_vqgan_512_config,
@@ -153,6 +180,7 @@ ver2cfg = {
     'paintmindv1-imgvar': pipeline_v1_imgvar_config,
     'paintmindv1-moe': pipeline_v1_moe_config,
     'paintmindv1-moe-4e': pipeline_v1_moe_4e_config,
+    'sdar-30b-a3b': pipeline_sdar_30b_a3b_config,
 }
 
 

@@ -7,7 +7,14 @@
 // queries of one (batch, head) and streams K/V through shared memory in tiles
 // of keys, carrying an online-softmax running max and sum in fp32.
 //
-// Layout: q (B, N, H, D), k and v (B, M, H, D), o (B, N, H, D), contiguous.
+// Layout: q (B, N, H, D) and o (B, N, H, D) contiguous; k and v (B, M, Hkv, D)
+// with their own batch and row strides (in elements, multiples of 8) and
+// their heads and dims contiguous, so that a KV cache's first M rows are read
+// in place.  Grouped-query attention: Hkv divides H, and query head h reads
+// KV head h / (H / Hkv); nothing is repeated (each block loads its KV head's
+// tiles itself, the H / Hkv blocks of a group from L2).  bf16 K/V that are
+// contiguous with q's heads take attn_fwd_wgmma, the others attn_fwd_wgmma_kv:
+// one body, the first with the strides the compiler knows.
 // D is 64 or 128 (the wrapper zero-pads smaller head dims to the next; the
 // JAX package sends head dims up to 128 to its kernel); fp32 or bf16 in,
 // fp32 accumulation and softmax, output in the input type.  When a gradient is
@@ -47,6 +54,11 @@ namespace {
 
 using namespace attn;
 
+// Element strides of k and v: between batch rows and between tokens.
+struct KVStrides {
+  long long k_batch, k_row, v_batch, v_row;
+};
+
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
@@ -60,11 +72,15 @@ constexpr int STAGES = 2;
 template <int D>
 constexpr int FWD_SMEM = (1 + 2 * STAGES) * (D / SUB) * TILE_BYTES + 1024;
 
-template <int D>
-__global__ void __launch_bounds__(FWD_THREADS)
-attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               float* __restrict__ lse, int N, int M, int H, float scale) {
+// One block's work.  CACHE: k and v grouped and strided as `kv` and `group`
+// say; otherwise contiguous with q's heads, their row stride the same H * D as
+// q's (a constant the compiler folds into the copies' addresses: the general
+// strides cost the MaskGIT calls 3-5 %).
+template <int D, bool CACHE>
+__device__ __forceinline__ void attn_fwd_tile(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int N, int M, int H, int group, KVStrides kv, float scale) {
   constexpr int NSUB = D / SUB;                   // sub-tiles of a tile
   constexpr int OP_BYTES = NSUB * TILE_BYTES;     // one operand's tile
   constexpr int STAGE_BYTES = 2 * OP_BYTES;
@@ -84,10 +100,12 @@ attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int q0 = blockIdx.x * TILE;
   const long long tok = (long long)H * D;  // elements between consecutive tokens
   const __nv_bfloat16* qb = q + (long long)b * N * tok + (long long)h * D;
-  const __nv_bfloat16* kb = k + (long long)b * M * tok + (long long)h * D;
-  const __nv_bfloat16* vb = v + (long long)b * M * tok + (long long)h * D;
+  const long long hk = (long long)(h / group) * D;  // this head's KV head
+  const __nv_bfloat16* kb = CACHE ? k + b * kv.k_batch + hk : k + (long long)b * M * tok + (long long)h * D;
+  const __nv_bfloat16* vb = CACHE ? v + b * kv.v_batch + hk : v + (long long)b * M * tok + (long long)h * D;
 
-  const TileCopier<FWD_THREADS, D> copy_k(kb, tok, M, tid), copy_v(vb, tok, M, tid);
+  const TileCopier<FWD_THREADS, D> copy_k(kb, CACHE ? kv.k_row : tok, M, tid),
+      copy_v(vb, CACHE ? kv.v_row : tok, M, tid);
   const int n_tiles = (M + TILE - 1) / TILE;
   // tile t into stage t % STAGES, as one group (an empty one past the last tile:
   // the count of groups in flight stays the same)
@@ -207,6 +225,25 @@ attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
                o + (long long)b * N * tok + (long long)h * D + hh * SUB, tok, q0, N, lane);
 }
 
+// K and V contiguous, with q's heads: every MaskGIT call.
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS)
+attn_fwd_wgmma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+               float* __restrict__ lse, int N, int M, int H, float scale) {
+  attn_fwd_tile<D, false>(q, k, v, o, lse, N, M, H, 1, KVStrides{}, scale);
+}
+
+// K and V grouped and read in place from a KV cache: sdar-30b-a3b's calls.
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS)
+attn_fwd_wgmma_kv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ lse, int N, int M, int H, int group, KVStrides kv,
+                  float scale) {
+  attn_fwd_tile<D, true>(q, k, v, o, lse, N, M, H, group, kv, scale);
+}
+
 // ---------------------------------------------------------------------------
 // fp32: CUDA cores
 // ---------------------------------------------------------------------------
@@ -221,7 +258,7 @@ template <int D>
 __global__ void __launch_bounds__(BQ32)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-             int N, int M, int H, float scale) {
+             int N, int M, int H, int group, KVStrides kv, float scale) {
   constexpr int SPLIT = D / 64;
   constexpr int PART = D / SPLIT;
   constexpr int QB = BQ32 / SPLIT;  // queries per block
@@ -253,8 +290,9 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float m_run = -INFINITY;
   float l_run = 0.f;
 
-  const float* kb = k + (long long)b * M * tok + (long long)h * D;
-  const float* vb = v + (long long)b * M * tok + (long long)h * D;
+  const long long hk = (long long)(h / group) * D;  // this head's KV head
+  const float* kb = k + b * kv.k_batch + hk;
+  const float* vb = v + b * kv.v_batch + hk;
 
   for (int k0 = 0; k0 < M; k0 += BK32) {
     const int nk = min(BK32, M - k0);
@@ -262,13 +300,12 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK32 * D; i += BQ32) {
       const int j = i / D;
       const int d = i % D;
-      float kv = 0.f, vv = 0.f;
+      float kval = 0.f, vv = 0.f;
       if (j < nk) {
-        const long long off = (long long)(k0 + j) * tok + d;
-        kv = kb[off];
-        vv = vb[off];
+        kval = kb[(long long)(k0 + j) * kv.k_row + d];
+        vv = vb[(long long)(k0 + j) * kv.v_row + d];
       }
-      ks[j][d] = kv;
+      ks[j][d] = kval;
       vs[j][d] = vv;
     }
     __syncthreads();
@@ -326,24 +363,37 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lp, int B, int N,
-           int M, int H, float scale, int dtype, cudaStream_t st) {
+           int M, int H, int group, KVStrides kv, float scale, int dtype, cudaStream_t st) {
+  const long long tok = (long long)H * D;
+  const bool cache = group != 1 || kv.k_row != tok || kv.v_row != tok ||
+                     kv.k_batch != M * tok || kv.v_batch != M * tok;
   if (dtype == 0) {
     constexpr int QB = BQ32 / (D / 64);
     const dim3 grid((N + QB - 1) / QB, H, B);
     attn_fwd_f32<D><<<grid, BQ32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lp, N, M, H, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lp, N, M, H, group, kv, scale);
   } else if (dtype == 1) {
     // needed once the ring is above the 48 KB a kernel gets unasked; the
     // attribute is per device, so it is set at every launch
-    const cudaError_t attr = cudaFuncSetAttribute(
-        attn_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM<D>);
+    const cudaError_t attr = cache ? cudaFuncSetAttribute(attn_fwd_wgmma_kv<D>,
+                                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                          FWD_SMEM<D>)
+                                   : cudaFuncSetAttribute(attn_fwd_wgmma<D>,
+                                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                          FWD_SMEM<D>);
     if (attr != cudaSuccess) return (int)attr;
     const dim3 grid((N + TILE - 1) / TILE, H, B);
-    attn_fwd_wgmma<D><<<grid, FWD_THREADS, FWD_SMEM<D>, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lp, N, M, H,
-        scale);
+    const auto* qp = static_cast<const __nv_bfloat16*>(q);
+    const auto* kp = static_cast<const __nv_bfloat16*>(k);
+    const auto* vp = static_cast<const __nv_bfloat16*>(v);
+    auto* op = static_cast<__nv_bfloat16*>(o);
+    if (cache)
+      attn_fwd_wgmma_kv<D><<<grid, FWD_THREADS, FWD_SMEM<D>, st>>>(qp, kp, vp, op, lp, N, M, H,
+                                                                   group, kv, scale);
+    else
+      attn_fwd_wgmma<D><<<grid, FWD_THREADS, FWD_SMEM<D>, st>>>(qp, kp, vp, op, lp, N, M, H,
+                                                                scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -353,16 +403,24 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lp, int 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64 or 128; lse may be null (no
-// gradient wanted).  bf16 operands must be 16-byte aligned.  Returns the
-// cudaError_t of the launch.
+// gradient wanted).  Hkv KV heads (dividing H); k_batch, k_row, v_batch, v_row
+// the element strides of k and v between batch rows and tokens (multiples of
+// 8).  bf16 operands must be 16-byte aligned.  Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   void* lse, int B, int N, int M, int H, int head_dim,
-                                   float scale, int dtype, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || H > 65535 || B > 65535 || !(scale > 0.f))
+                                   void* lse, int B, int N, int M, int H, int Hkv,
+                                   int head_dim, long long k_batch, long long k_row,
+                                   long long v_batch, long long v_row, float scale, int dtype,
+                                   void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || H > 65535 || B > 65535 || !(scale > 0.f) ||
+      Hkv <= 0 || H % Hkv || k_row % 8 || v_row % 8 || k_batch % 8 || v_batch % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lp = static_cast<float*>(lse);
-  if (head_dim == 64) return launch<64>(q, k, v, o, lp, B, N, M, H, scale, dtype, st);
-  if (head_dim == 128) return launch<128>(q, k, v, o, lp, B, N, M, H, scale, dtype, st);
+  const KVStrides kv{k_batch, k_row, v_batch, v_row};
+  const int group = H / Hkv;
+  if (head_dim == 64) return launch<64>(q, k, v, o, lp, B, N, M, H, group, kv, scale, dtype, st);
+  if (head_dim == 128)
+    return launch<128>(q, k, v, o, lp, B, N, M, H, group, kv, scale, dtype, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,14 +42,21 @@
 // run gives the same bits.
 //
 // Beside K5 stand the packed path's other passes: moe_dispatch (a one-block
-// count of each expert's rows into off[], then a warp an assignment: its row
+// count of each expert's rows into off[] by shared-memory integer atomics,
+// then a warp an assignment: its row
 // off[e] + pos, and its token copied there) and moe_combine (y[t] = sum_j
 // g[t, j] . O[row(t, j)] in fp32, one rounding; a dropped assignment has row
 // -1 and adds nothing; a warp a token).
 //
 // Layout: bf16, contiguous, 16-byte aligned; X (rows, D), w12 (E, 2h, D),
 // b12 (E, 2h), H (rows, h), w3 (E, D, h), b3 (E, D), O (rows, D); off int32
-// (E + 1); D and h multiples of 8 (the TMA unit's 16-byte row strides).
+// (E + 1); D and h multiples of 8 (the TMA unit's 16-byte row strides); at
+// most 128 experts (SDAR-30B-A3B's count).  Experts without biases pass null
+// b12 and b3: the epilogue then adds nothing and loads nothing.  h need not
+// be a multiple of K5a's 144 columns (768 = 5 1/3 tiles): the last column
+// tile reads the rows past h of its half of w12 (the other half's, the next
+// expert's, or the TMA unit's zeros past the tensor), computes them and
+// stores nothing past h.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,7 +77,7 @@ constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup (one threa
 // registers a thread after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65536
 constexpr int CONSUMER_REGS = 232;
 constexpr int PRODUCER_REGS = 40;
-constexpr int MAX_EXPERTS = 64;
+constexpr int MAX_EXPERTS = 128;
 constexpr int W12_BN = 144;               // K5a: columns of H a tile
 constexpr int W3_BN = 256;                // K5b: columns of O a tile
 constexpr int STAGE_TILE_BYTES = 16 * 128;  // a consumer warp's 16 x 64 epilogue tile
@@ -363,9 +370,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = min(8 * j + 2 * t, last);
-      bias1[j] = __ldg(reinterpret_cast<const unsigned int*>(bp + col));
+      bias1[j] = bias == nullptr ? 0u : __ldg(reinterpret_cast<const unsigned int*>(bp + col));
       if constexpr (SWIGLU)
-        bias2[j] = __ldg(reinterpret_cast<const unsigned int*>(bp + n_out + col));
+        bias2[j] = bias == nullptr
+                       ? 0u
+                       : __ldg(reinterpret_cast<const unsigned int*>(bp + n_out + col));
     }
     attn::wgmma_wait<0>();
     attn::wgmma_pin(acc);
@@ -432,40 +441,47 @@ constexpr int PASS_THREADS = 256;  // eight warps, one row each
 constexpr int PACK_THREADS = 1024;
 
 // off[] (E + 1) from each expert's assignment count, capped at cap: one
-// block; counts by warp ballots, summed warp by warp in a fixed order (no
-// atomics).  idx (tokens, k) int64 with element strides i0, i1.
+// block; each thread adds its assignments to the experts' counts in shared
+// memory (integer atomics: exact, so every run gives the same offsets), then
+// one warp sums the capped counts in expert order, MAX_EXPERTS / 32 experts a
+// lane.  idx (tokens, k) int64 with element strides i0, i1.
 __global__ void __launch_bounds__(PACK_THREADS)
     moe_count_kernel(const long long* __restrict__ idx, long long i0, long long i1, int tokens,
                      int k, int experts, int cap, int* __restrict__ off) {
-  __shared__ int warp_count[PACK_THREADS / 32][MAX_EXPERTS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = tokens * k;
-  int c0 = 0, c1 = 0;  // this lane's counts of experts lane and lane + 32
-  for (int a0 = warp * 32; a0 < n; a0 += PACK_THREADS) {
-    const int a = a0 + lane;
-    const int t = a / k;
-    const int ex = a < n ? (int)idx[t * i0 + (a - t * k) * i1] : -1;
-    for (int e = 0; e < experts; ++e) {
-      const int hits = __popc(__ballot_sync(0xffffffffu, ex == e));
-      if ((e & 31) == lane) {
-        if (e < 32) c0 += hits;
-        else c1 += hits;
-      }
-    }
-  }
-  warp_count[warp][lane] = c0;
-  warp_count[warp][lane + 32] = c1;
+  constexpr int PER_LANE = MAX_EXPERTS / 32;
+  __shared__ int count[MAX_EXPERTS];
+  for (int e = threadIdx.x; e < MAX_EXPERTS; e += PACK_THREADS) count[e] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int rows = 0;
-    for (int e = 0; e < experts; ++e) {
-      int count = 0;
-      for (int w = 0; w < PACK_THREADS / 32; ++w) count += warp_count[w][e];
-      off[e] = rows;
-      rows += count < cap ? count : cap;
+  const int n = tokens * k;
+  for (int a = threadIdx.x; a < n; a += PACK_THREADS) {
+    const int t = a / k;
+    atomicAdd(&count[(int)idx[t * i0 + (a - t * k) * i1]], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int rows[PER_LANE];
+    int mine = 0;  // this lane's experts PER_LANE * lane .. + PER_LANE - 1
+#pragma unroll
+    for (int s = 0; s < PER_LANE; ++s) {
+      const int e = PER_LANE * lane + s;
+      rows[s] = e < experts ? min(count[e], cap) : 0;
+      mine += rows[s];
     }
-    off[experts] = rows;
+    int before = mine;  // inclusive scan of the lanes' sums
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, before, d);
+      if (lane >= d) before += up;
+    }
+    before -= mine;
+#pragma unroll
+    for (int s = 0; s < PER_LANE; ++s) {
+      const int e = PER_LANE * lane + s;
+      if (e < experts) off[e] = before;
+      before += rows[s];
+    }
+    if (lane == 31) off[experts] = before;
   }
 }
 
@@ -605,7 +621,8 @@ int pass_grid(long long rows, int sms) {
 
 // K5a then K5b on each expert's packed rows: H (rows, hidden) = silu(X.W1ᵀ +
 // b1) * (X.W2ᵀ + b2), O (rows, d) = H.W3ᵀ + b3; x (rows, d), w12 (E, 2 hidden,
-// d), b12 (E, 2 hidden), w3 (E, d, hidden), b3 (E, d), off (E + 1) int32.
+// d), b12 (E, 2 hidden) or null, w3 (E, d, hidden), b3 (E, d) or null, off
+// (E + 1) int32.
 // which: 3 both, 1 K5a alone, 2 K5b alone (timing).  sms: the card's SM count
 // (one persistent block each).  Returns the cudaError_t.
 extern "C" int moe_experts(const void* x, const void* w12, const void* b12, const void* w3,

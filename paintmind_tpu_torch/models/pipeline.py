@@ -13,6 +13,11 @@ parallel decoding.
   * classifier-free guidance ``uncond + s·(cond − uncond)``, mixed on the
     post-LN hidden states before the shared vocab head; scalar or per-sample
     (B,) scales and temperatures;
+  * ``sdar-30b-a3b`` (``block='sdar'``): SDAR-30B-A3B's decoder stack
+    (``models/sdar_transformer.py``) decoding by block diffusion over a KV
+    cache (``generate_blocks``): the prompt as the first block, then the
+    image's codes in blocks of ``block_len`` raster positions, each
+    denoised in ``block_steps`` steps, unguided; no training path;
   * the MoE versions (``num_experts > 0``: ``paintmindv1-moe``,
     ``paintmindv1-moe-4e``): the transformer is a ``MoECondTransformer``,
     the loss adds the weighted routing losses, and guidance mixes the
@@ -58,6 +63,7 @@ from ..utils.profiling import annotate
 from . import vqmodel as vm
 from .moe_transformer import MoECondTransformer, MoECondTransformerConfig
 from .quantize import l2norm
+from .sdar_transformer import SDARTransformer, SDARTransformerConfig
 from .transformer import CondTransformer, CondTransformerConfig
 
 # Conditioning towers the registry's ``t5`` field can name -> context dim.
@@ -89,6 +95,15 @@ class PipelineConfig:
     moe_dispatch: str = 'auto'  # 'auto' | 'gather' | 'dense' (nn/moe.py)
     lb_weight: float = 0.01     # Switch load-balance loss weight
     zloss_weight: float = 1e-3  # router z-loss weight
+    # SDAR-30B-A3B (block='sdar', models/sdar_transformer.py): absent, and
+    # so at these defaults, for every other version
+    block: str = 'maskgit'      # 'maskgit' | 'sdar'
+    kv_heads: int | None = None
+    rope_theta: float | None = None
+    rms_eps: float | None = None
+    expert_hidden: int | None = None  # the experts' width, given directly
+    block_len: int | None = None      # image codes a block
+    block_steps: int | None = None    # denoising steps a block
 
     @classmethod
     def from_dict(cls, d):
@@ -106,7 +121,13 @@ class PipelineConfig:
                    capacity_factor=d.get('capacity_factor', 1.25),
                    moe_dispatch=d.get('moe_dispatch', 'auto'),
                    lb_weight=d.get('lb_weight', 0.01),
-                   zloss_weight=d.get('zloss_weight', 1e-3))
+                   zloss_weight=d.get('zloss_weight', 1e-3),
+                   block=d.get('block', 'maskgit'),
+                   kv_heads=d.get('kv_heads'), rope_theta=d.get('rope_theta'),
+                   rms_eps=d.get('rms_eps'),
+                   expert_hidden=d.get('expert_hidden'),
+                   block_len=d.get('block_len'),
+                   block_steps=d.get('block_steps'))
 
     @property
     def image_size(self):
@@ -126,6 +147,18 @@ class PipelineConfig:
 
     @property
     def tcfg(self) -> CondTransformerConfig:
+        if self.block == 'sdar':
+            return SDARTransformerConfig(
+                in_dim=self.vqc.embed_dim, dim=self.dim,
+                len_seq=self.num_tokens, dim_head=self.dim_head,
+                num_head=self.num_head, kv_heads=self.kv_heads,
+                depth=self.depth, num_experts=self.num_experts,
+                num_selected=self.num_selected,
+                expert_hidden=self.expert_hidden,
+                capacity_factor=self.capacity_factor,
+                moe_dispatch=self.moe_dispatch, rope_theta=self.rope_theta,
+                rms_eps=self.rms_eps,
+                context_dim=self.t5_dim, num_classes=self.vqc.n_embed)
         kw = dict(
             in_dim=self.vqc.embed_dim, dim=self.dim, len_seq=self.num_tokens,
             dim_head=self.dim_head, mlp_dim=self.mlp_dim,
@@ -194,6 +227,10 @@ def pipeline_loss(pipe, img, context, mask_ratio, *, generator=None,
     (detached; ``expert load`` the (E,) top-1 fractions), ``{}`` for the
     dense model.  ``transformer_apply(transformer, x, context, ...)`` runs
     the transformer in its place (the pipeline-parallel apply)."""
+    if pipe.config.block != 'maskgit':
+        raise NotImplementedError(
+            f'pipeline_loss: the {pipe.config.block!r} stack has no training '
+            'path (the port samples it only)')
     with torch.no_grad(), annotate('pm.train.encode'):
         z_q, _, ids = pipe.vqgan.encode(img, backend=backend,
                                         vq_backend=vq_backend)
@@ -346,12 +383,25 @@ def sample_step(pipe, ids, *, context, n_masked, temperature, topk,
     Gumbel noise from ``generator``; 'fused' = kernel K3 (one pass over the
     logits, seeded from ``generator``); 'auto' = fused for CUDA logits,
     exact for CPU logits."""
-    b, l = ids.shape
     with annotate('pm.step.logits'):
         tokens = ids_to_tokens(pipe, ids, cfg)
         logits = _transformer_logits(pipe, tokens, context, guidance_scale,
                                      cfg=cfg, backend=backend, dtype=dtype,
                                      neg_context=neg_context)
+    return draw_and_remask(logits, ids, n_masked=n_masked,
+                           temperature=temperature, topk=topk, cfg=cfg,
+                           sampler=sampler, clamp_remask=clamp_remask,
+                           noise=noise, generator=generator)
+
+
+def draw_and_remask(logits, ids, *, n_masked, temperature, topk,
+                    cfg: PipelineConfig, sampler='auto', clamp_remask=False,
+                    noise=None, generator=None):
+    """The sampling head of a step on its (B, L, V) logits: the draw
+    (``sample_step``'s ``sampler``) and the confidence re-mask of ``ids``
+    (B, L) that leaves ``n_masked`` positions masked.  Returns (ids_next,
+    pred_ids)."""
+    l = ids.shape[1]
     if sampler == 'auto':
         sampler = 'fused' if logits.is_cuda else 'exact'
     with annotate('pm.step.draw'):
@@ -495,6 +545,61 @@ def generate_ids(pipe, init_ids, context=None, *, cfg: PipelineConfig,
     return ids, torch.stack(shown)
 
 
+@torch.no_grad()
+def generate_blocks(pipe, context, *, cfg: PipelineConfig, temperature=1.0,
+                    topk=5, steps=None, backend=None, dtype=None,
+                    sampler='auto', generator=None):
+    """Block-diffusion decoding (SDAR's ``block_diffusion_generate``) of the
+    image codes, unguided: one prefill pass of the (B, M, t5_dim) prompt
+    into a KV cache of M + L positions (``SDARTransformer.cache``: made at
+    the first call of this shape, kept for the next); then for each of
+    the L / block_len blocks of raster codes, left to right, ``steps``
+    steps (default ``cfg.block_steps``), each a pass of the block's tokens
+    (all masked at first) over the cache, the draw (K3 on the card) and the
+    re-mask that leaves ``block_len - (s + 1)·block_len / steps`` of the
+    block masked: the static low-confidence schedule unmasks the same number
+    of its most confident positions each step and keeps what it unmasked;
+    after the last step one commit pass with the block's final codes writes
+    their K/V (its logits are not formed).  Temperature and top-k stay the
+    same at every step.  Returns the final ids (B, L) int32.
+
+    Spans: ``pm.prefill``; ``pm.block`` (attribute ``index``) around a
+    block's steps and its ``pm.block.commit`` pass; each step's
+    ``pm.step.logits``, ``pm.step.draw`` and ``pm.step.remask``."""
+    tr = pipe.transformer
+    n, total = cfg.block_len, cfg.num_tokens
+    steps = steps or cfg.block_steps
+    if total % n or n % steps:
+        raise ValueError(f'{total} codes in blocks of {n}, {steps} steps a '
+                         'block: each must divide the one before')
+    per = n // steps
+    if dtype is not None:
+        context = context.to(dtype)
+    b, m = context.shape[:2]
+    cache = tr.cache(b, m + total, dtype=context.dtype, device=context.device)
+    ids = torch.full((b, total), cfg.mask_token_id, dtype=torch.int32,
+                     device=context.device)
+    with annotate('pm.prefill'):
+        tr.prefill(context, cache, backend=backend)
+    for j in range(total // n):
+        start = m + j * n
+        blk = ids[:, j * n:(j + 1) * n]
+        with annotate('pm.block', index=j):
+            for s in range(steps):
+                with annotate('pm.step.logits'):
+                    tokens = ids_to_tokens(pipe, blk, cfg).to(context.dtype)
+                    logits = tr(tokens, cache, start, backend=backend)
+                blk, _ = draw_and_remask(
+                    logits, blk, n_masked=n - per * (s + 1),
+                    temperature=temperature, topk=topk, cfg=cfg,
+                    sampler=sampler, generator=generator)
+            with annotate('pm.block.commit'):
+                tokens = ids_to_tokens(pipe, blk, cfg).to(context.dtype)
+                tr(tokens, cache, start, logits=False, backend=backend)
+        ids[:, j * n:(j + 1) * n] = blk
+    return ids
+
+
 # ---------------------------------------------------------------------------
 # Object API
 # ---------------------------------------------------------------------------
@@ -534,7 +639,8 @@ class Pipeline(nn.Module):
             param_dtype=param_dtype, compute_dtype=compute_dtype,
             device=device)
         self.vqgan.freeze()
-        transformer = (MoECondTransformer if cfg.num_experts
+        transformer = (SDARTransformer if cfg.block == 'sdar' else
+                       MoECondTransformer if cfg.num_experts
                        else CondTransformer)
         self.transformer = transformer(cfg.tcfg, device=device,
                                        dtype=param_dtype)
@@ -639,7 +745,14 @@ class Pipeline(nn.Module):
 
     # -- training --------------------------------------------------------
 
+    def _maskgit_only(self, what):
+        if self.config.block != 'maskgit':
+            raise NotImplementedError(
+                f'{what}: the {self.config.block!r} stack decodes by blocks '
+                'over a KV cache (generate) and has no other path')
+
     def tokens2logits(self, tokens, context=None):
+        self._maskgit_only('tokens2logits')
         tokens = torch.as_tensor(tokens, device=self.device)
         out = self.transformer(tokens, self.embed_text(context))
         return out[0] if self.config.num_experts else out
@@ -661,6 +774,7 @@ class Pipeline(nn.Module):
                generator=None, guidance_scale=None):
         """One decode step (reference generate.py:159-181); returns
         (ids_next, img)."""
+        self._maskgit_only('sample')
         context = self.embed_text(text)
         n_masked = max(int(mask_ratio * self.num_tokens), 1)
         ids_next, pred = sample_step(
@@ -671,14 +785,27 @@ class Pipeline(nn.Module):
         return ids_next, self.vqgan.decode_from_indice(pred)
 
     @torch.no_grad()
-    def generate(self, text=None, timesteps=18, temperature=1.0, topk=5,
+    def generate(self, text=None, timesteps=None, temperature=1.0, topk=5,
                  save_interval=2, generator=None, guidance_scale=None,
                  num_samples=None, decode_steps='saved', cfg_warmup=0.0,
                  negative_text=None, trajectory='merged'):
         """(reference generate.py:183-198).  Returns a list of (B, H, W, 3)
         image batches: one per saved step ('saved') or just the final one
-        ('final').  ``negative_text``: context(s) the guidance pushes away
-        from, in place of the unconditional branch."""
+        ('final').  ``timesteps``: 18 by default.  ``negative_text``:
+        context(s) the guidance pushes away from, in place of the
+        unconditional branch.
+
+        A block-diffusion version (``sdar-30b-a3b``) decodes by
+        ``generate_blocks``: ``timesteps`` are the steps of each block (the
+        configuration's ``block_steps`` by default), ``text`` is required,
+        guidance, negative text and the warm-up are refused, and the one
+        batch returned is the final images whatever ``decode_steps``
+        asks."""
+        if self.config.block != 'maskgit':
+            return self._generate_blocks(text, timesteps, temperature, topk,
+                                         generator, guidance_scale,
+                                         negative_text, cfg_warmup)
+        timesteps = 18 if timesteps is None else timesteps
         if negative_text is not None:
             if guidance_scale is None:
                 raise ValueError('negative_text requires guidance_scale — '
@@ -717,6 +844,26 @@ class Pipeline(nn.Module):
                 return [self.vqgan.decode_from_indice(sel[i])
                         for i in range(s)]
 
+    def _generate_blocks(self, text, timesteps, temperature, topk, generator,
+                         guidance_scale, negative_text, cfg_warmup):
+        if (guidance_scale is not None or negative_text is not None
+                or cfg_warmup):
+            raise ValueError(f'the {self.config.block!r} stack decodes '
+                             'unguided: no guidance_scale, negative_text or '
+                             'cfg_warmup')
+        context = self.embed_text(text)
+        if context is None:
+            raise ValueError('block-diffusion decoding needs a prompt (text '
+                             'or a context): it is the first block')
+        b = context.shape[0]
+        with annotate('pm.generate', batch=b, steps=timesteps):
+            ids = generate_blocks(self, context, cfg=self.config,
+                                  temperature=temperature, topk=topk,
+                                  steps=timesteps, dtype=self.compute_dtype,
+                                  generator=generator or self._generator)
+            with annotate('pm.decode'):
+                return [self.vqgan.decode_from_indice(ids)]
+
     def _rect_latent_mask(self, coord, inside):
         """(reference generate.py:204-210): latent-grid mask from the pixel
         rect coord = (x, y, h, w), ``inside`` = value inside the rect; a
@@ -739,6 +886,7 @@ class Pipeline(nn.Module):
         """Paint with a per-sample latent keep-mask (B, L) or (1, L):
         1 = keep the original token, 0 = regenerate.  ``temperature`` may be
         per-sample (B,)."""
+        self._maskgit_only('paint')
         _, ids, context = self.to_latent(img, text)
         keep = torch.as_tensor(keep_mask, device=self.device).bool()
         ids = torch.where(keep, ids, torch.full((), self.mask_token_id,
@@ -811,6 +959,7 @@ class Pipeline(nn.Module):
         Returns self; serve it with ``GenerationEngine(pipe, mesh=mesh)``."""
         from ..parallel.mesh import check_mesh, pipeline_param_spec, \
             shard_params
+        self._maskgit_only('shard')
         if mesh is None:
             raise ValueError('shard() needs a mesh: pass one '
                              '(parallel.mesh.make_mesh)')
@@ -834,6 +983,7 @@ class Pipeline(nn.Module):
         microbatches.  Returns self."""
         from ..parallel.mesh import check_mesh
         from ..parallel.pipeline_parallel import shard_for_pp
+        self._maskgit_only('enable_pipeline_parallel')
         if mesh is None:
             raise ValueError('enable_pipeline_parallel needs a mesh: pass '
                              'one (parallel.mesh.make_mesh)')

@@ -21,6 +21,16 @@ In training mode ``forward`` applies dropout to the output projection, from
 an explicit generator; ``forward_cfg_halves`` is a sampling-only path and
 stays deterministic, as in the JAX package.
 
+``CachedAttention`` is SDAR-30B-A3B's (Qwen3-MoE's) self-attention for
+block-diffusion decoding: grouped-query heads (``kv_heads`` KV heads, each
+read by ``heads / kv_heads`` query heads), bias-free projections, an RMSNorm
+over each head's q and k (QK-norm) before the rotary embedding, and a KV
+cache: a pass over the tokens at positions [p, p + N) writes their
+post-RoPE K/V into cache rows [p, p + N) and attends its N queries over
+rows [0, p + N) of the cache, read in place (a strided view).  Blocks
+passed in order are block-causal attention, bidirectional inside a block,
+with no mask.
+
 Tensor parallelism (``tp``, set by ``parallel.mesh.shard_params``): the
 module holds this rank's heads (``heads`` is the local count, q/k/v
 column-parallel), ``to_out`` is row-parallel and its partial outputs are
@@ -36,7 +46,8 @@ from torch import nn
 from ..ops.flash_attention import flash_attention, flash_attention_plain
 from ..parallel import collectives as C
 from ..parallel.tensor_parallel import enter, row_linear
-from .core import Linear
+from ..ops.rope import norm_rope
+from .core import Linear, RMSNorm
 from .core import dropout as apply_dropout
 
 BACKENDS = ('auto', 'plain', 'flash')
@@ -134,3 +145,47 @@ class Attention(nn.Module):
                                self._split(self.to_v(xu)), scale, backend)
         out = torch.cat([out_c, out_u], dim=0)
         return self._out(out.reshape(x.shape[0], x.shape[1], -1))
+
+
+class CachedAttention(nn.Module):
+    """Grouped-query self-attention with QK-norm and rotary positions over a
+    KV cache (the module's docstring): ``to_q`` (dim -> heads·dim_head),
+    ``to_k`` and ``to_v`` (dim -> kv_heads·dim_head), ``to_out``, all
+    without bias; ``q_norm`` and ``k_norm`` RMSNorms over dim_head,
+    applied in the rotary embedding's fp32 pass
+    (``ops/rope.norm_rope``, kernel K6 on the card, which writes k into the
+    cache in place)."""
+
+    def __init__(self, dim, *, heads, kv_heads, dim_head, eps=1e-6,
+                 device=None, dtype=None):
+        super().__init__()
+        if heads % kv_heads:
+            raise ValueError(f'{heads} query heads over {kv_heads} KV heads')
+        kw = dict(device=device, dtype=dtype)
+        self.heads, self.kv_heads, self.dim_head = heads, kv_heads, dim_head
+        self.to_q = Linear(dim, heads * dim_head, bias=False, **kw)
+        self.to_k = Linear(dim, kv_heads * dim_head, bias=False, **kw)
+        self.to_v = Linear(dim, kv_heads * dim_head, bias=False, **kw)
+        self.to_out = Linear(heads * dim_head, dim, bias=False, **kw)
+        self.q_norm = RMSNorm(dim_head, eps, **kw)
+        self.k_norm = RMSNorm(dim_head, eps, **kw)
+
+    def forward(self, x, cache, start, rope, *, backend=None):
+        """x (B, N, dim) at positions [start, start + N); ``cache`` (k, v),
+        each (B, L, kv_heads, dim_head), receives their K/V in rows
+        [start, start + N); ``rope`` the (cos, sin) tables of those
+        positions, each (N, dim_head).  Returns (B, N, dim)."""
+        b, n, _ = x.shape
+        q = self.to_q(x).reshape(b, n, self.heads, self.dim_head)
+        k = self.to_k(x).reshape(b, n, self.kv_heads, self.dim_head)
+        v = self.to_v(x).reshape(b, n, self.kv_heads, self.dim_head)
+        cos, sin = rope
+        q = norm_rope(q, cos, sin, self.q_norm.weight, self.q_norm.eps)
+        k_cache, v_cache = cache
+        end = start + n
+        norm_rope(k, cos, sin, self.k_norm.weight, self.k_norm.eps,
+                  out=k_cache[:, start:end])
+        v_cache[:, start:end] = v
+        out = attention_core(q, k_cache[:, :end], v_cache[:, :end],
+                             self.dim_head ** -0.5, backend)
+        return self.to_out(out.reshape(b, n, -1))

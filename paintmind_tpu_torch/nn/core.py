@@ -1,8 +1,9 @@
-"""Building blocks: linear, LayerNorm with fp32 statistics, initialisers.
+"""Building blocks: linear, LayerNorm and RMSNorm with fp32 statistics,
+rotary position embedding, initialisers.
 
 Numerics policy (as in ``paintmind_tpu/nn/core.py``): a layer computes in
 the dtype of its incoming activations, casting its own parameters to it,
-except LayerNorm statistics, which always run in fp32.
+except the norms' statistics, which always run in fp32.
 """
 
 from __future__ import annotations
@@ -35,6 +36,38 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape,
                          self.weight.float(), self.bias.float(), self.eps)
         return y.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm (Zhang & Sennrich 2019, as in Qwen3 / SDAR): ``x /
+    sqrt(mean(x²) + eps) · weight`` over the last axis, the statistics and
+    the gain in fp32, the output rounded once to the input dtype
+    (``F.rms_norm``: one pass on the card, as ``LayerNorm``'s
+    ``F.layer_norm``)."""
+
+    def __init__(self, dim, eps=1e-6, *, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight.shape, self.weight.to(x.dtype),
+                          self.eps)
+
+
+def rope_tables(positions, dim, theta, device=None):
+    """(cos, sin), each (len(positions), dim) fp32, of the rotate-half
+    rotary embedding (RoFormer; Hugging Face ``rotate_half``): frequency
+    ``theta^(-2i/dim)`` for pair i, repeated over both halves; ``sin``'s
+    first half negated, so that ``rotate_half(x)·sin`` is
+    ``roll(x, dim/2)·sin`` with these tables (``ops/rope.py`` applies
+    them)."""
+    inv = theta ** (-torch.arange(0, dim, 2, dtype=torch.float64,
+                                  device=device) / dim)
+    pos = torch.as_tensor(positions, dtype=torch.float64, device=device)
+    ang = pos[:, None] * inv[None]
+    return (torch.cat([ang.cos()] * 2, dim=-1).float(),
+            torch.cat([-ang.sin(), ang.sin()], dim=-1).float())
 
 
 _rows = contextvars.ContextVar('paintmind_global_rows', default=None)

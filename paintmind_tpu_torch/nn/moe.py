@@ -9,7 +9,9 @@ Routing is GShard / Switch style with static shapes:
     softmax gates renormalised to sum to 1;
   * every expert holds ``C = max(1, int(T·k/E·cf + 0.999))`` slots, ``T``
     the call's token count (so the capacity, and with it every token's
-    routing, depends on the whole batch);
+    routing, depends on the whole batch); with no capacity factor
+    (``None``: dropless, as SDAR-30B-A3B routes) ``C = T``, room for every
+    token, so nothing is dropped and a token's routing is its own;
   * queue positions are slot-major (every token's first choice is queued
     before any token's second choice, tokens in (b, l) order); a
     (token, slot) assignment past its expert's capacity is dropped, and
@@ -75,16 +77,18 @@ DISPATCHES = ('auto', 'gather', 'dense')
 
 class StackedLinear(nn.Module):
     """``num`` linear maps of one shape: weight (num, out, in), bias
-    (num, out).  ``forward`` maps (num, C, in) -> (num, C, out), the i-th
-    map on the i-th slice, in the input's type."""
+    (num, out), or none with ``bias=False``.  ``forward`` maps (num, C, in)
+    -> (num, C, out), the i-th map on the i-th slice, in the input's
+    type."""
 
-    def __init__(self, num, in_features, out_features, *, device=None,
-                 dtype=None):
+    def __init__(self, num, in_features, out_features, *, bias=True,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.weight = nn.Parameter(torch.empty(num, out_features, in_features,
                                                **kw))
-        self.bias = nn.Parameter(torch.empty(num, out_features, **kw))
+        self.bias = (nn.Parameter(torch.empty(num, out_features, **kw))
+                     if bias else None)
 
     @torch.no_grad()
     def init_weights_(self, generator):
@@ -93,22 +97,28 @@ class StackedLinear(nn.Module):
         out_f, in_f = self.weight.shape[1:]
         a = math.sqrt(6.0 / (in_f + out_f))
         self.weight.uniform_(-a, a, generator=generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
-        return torch.baddbmm(self.bias.to(x.dtype)[:, None, :], x,
-                             self.weight.to(x.dtype).transpose(1, 2))
+        w = self.weight.to(x.dtype).transpose(1, 2)
+        if self.bias is None:
+            return torch.bmm(x, w)
+        return torch.baddbmm(self.bias.to(x.dtype)[:, None, :], x, w)
 
 
 class StackedSwiGLU(nn.Module):
-    """``E`` SwiGLU experts (``nn/mlp.py``'s layout, stacked)."""
+    """``E`` SwiGLU experts (``nn/mlp.py``'s layout, stacked); ``hidden``
+    their width where it is given directly (SDAR's 768), else by the 2/3
+    rule from ``mlp_dim``."""
 
-    def __init__(self, num, dim, mlp_dim, *, device=None, dtype=None):
+    def __init__(self, num, dim, mlp_dim, *, hidden=None, bias=True,
+                 device=None, dtype=None):
         super().__init__()
-        hidden = swiglu_hidden_dim(mlp_dim)
-        self.w12 = StackedLinear(num, dim, 2 * hidden, device=device,
-                                 dtype=dtype)
-        self.w3 = StackedLinear(num, hidden, dim, device=device, dtype=dtype)
+        hidden = hidden or swiglu_hidden_dim(mlp_dim)
+        kw = dict(bias=bias, device=device, dtype=dtype)
+        self.w12 = StackedLinear(num, dim, 2 * hidden, **kw)
+        self.w3 = StackedLinear(num, hidden, dim, **kw)
 
     def forward(self, x):
         x1, x2 = self.w12(x).chunk(2, dim=-1)
@@ -117,21 +127,27 @@ class StackedSwiGLU(nn.Module):
 
 class MoESwiGLU(nn.Module):
     """``router`` (bias-free ``Linear(dim, E)``) and ``experts``
-    (``StackedSwiGLU``); ``forward(x) -> (y, aux)`` is ``moe_swiglu`` with
-    the routing options given here."""
+    (``StackedSwiGLU``: ``expert_hidden`` wide where given, with biases
+    unless ``expert_bias=False``); ``forward(x) -> (y, aux)`` is
+    ``moe_swiglu`` with the routing options given here
+    (``capacity_factor=None``: dropless).  ``stats=False``: a caller that
+    reads no routing statistics (SDAR's sampling stack) gets ``aux`` None
+    and the call forms none of them."""
 
     def __init__(self, dim, mlp_dim, num_experts, *, num_selected=2,
-                 capacity_factor=1.25, dispatch='auto', device=None,
-                 dtype=None):
+                 capacity_factor=1.25, dispatch='auto', expert_hidden=None,
+                 expert_bias=True, stats=True, device=None, dtype=None):
         super().__init__()
         self.router = Linear(dim, num_experts, bias=False, device=device,
                              dtype=dtype)
-        self.experts = StackedSwiGLU(num_experts, dim, mlp_dim, device=device,
-                                     dtype=dtype)
+        self.experts = StackedSwiGLU(num_experts, dim, mlp_dim,
+                                     hidden=expert_hidden, bias=expert_bias,
+                                     device=device, dtype=dtype)
         self.num_experts = num_experts
         self.num_selected = num_selected
         self.capacity_factor = capacity_factor
         self.dispatch = dispatch
+        self.stats = stats
         self.tp = None            # expert parallelism over 'model'
         self.route_group = None   # data parallelism: route the global batch
 
@@ -141,7 +157,11 @@ class MoESwiGLU(nn.Module):
 
 
 def capacity(tokens, k, num_experts, capacity_factor):
-    """Slots per expert: the JAX package's expression, float and all."""
+    """Slots per expert: the JAX package's expression, float and all; with
+    no capacity factor (dropless) every token: a token takes an expert at
+    most once."""
+    if capacity_factor is None:
+        return tokens
     return max(1, int(tokens * k / num_experts * capacity_factor + 0.999))
 
 
@@ -238,11 +258,13 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
                                            e)
             profiling.count('pm.moe.grouped', 1)
             profiling.count('pm.moe.rows', off[-1])
+            if profiling.counting():  # the experts with a row: a device sum
+                profiling.count('pm.moe.experts_hit', off[1:] > off[:-1])
             with annotate('pm.moe.experts'):
                 w12, w3 = module.experts.w12, module.experts.w3
                 out = K5.grouped_swiglu(xp, off, w12.weight.to(dt),
-                                        w12.bias.to(dt), w3.weight.to(dt),
-                                        w3.bias.to(dt))
+                                        _to(w12.bias, dt), w3.weight.to(dt),
+                                        _to(w3.bias, dt))
             with annotate('pm.moe.combine'):
                 y = K5.combine(out, row, gk)
         elif dispatch == 'dense':
@@ -280,9 +302,15 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
         if tp is not None and tp.sequence:
             y = C.local_slice(y.reshape(*lead, -1), tp.group, 1)
             lead = y.shape[:-1]
-        with annotate('pm.moe.aux'):
-            aux = _aux(logits, probs, idx, keep, e, group)
+        aux = None
+        if module.stats:
+            with annotate('pm.moe.aux'):
+                aux = _aux(logits, probs, idx, keep, e, group)
         return y.reshape(*lead, y.shape[-1]), aux
+
+
+def _to(bias, dtype):
+    return None if bias is None else bias.to(dtype)
 
 
 def _packed(module, x):

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC / 'build'
 KERNELS = ('flash_attention', 'flash_attention_bwd', 'vq_lookup', 'sampling',
-           'moe_experts')
+           'moe_experts', 'rope')
 # --split-compile=0: the kernels of one source are optimised on all cores (the
 # sampling head's six instantiations are the longest build)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',

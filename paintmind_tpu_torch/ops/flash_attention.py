@@ -5,7 +5,14 @@ Replaces ``paintmind_tpu/ops/flash_attention.py``: ``_flash_forward`` (Pallas
 kernel ``_attn_kernel``) and ``_flash_backward`` (``_bwd_kernel``), wired
 there as a ``custom_vjp`` and here as a ``torch.autograd.Function``.
 Non-causal ``softmax(q·kᵀ·scale)·v`` for self- and cross-attention, in the
-JAX layout (B, N, H, D) x (B, M, H, D).  The kernels are compiled for head
+JAX layout (B, N, H, D) x (B, M, H, D).  The forward also takes
+grouped-query attention, k and v with ``Hkv`` heads of which each serves
+``H / Hkv`` query heads in turn (query head h reads KV head
+``h // (H / Hkv)``: K and V are not repeated), and k and v as views whose
+batch and row strides are their own (their last two axes contiguous), so
+that it reads a preallocated KV cache's first M rows in place
+(``nn/attention.py``'s cache path).  The backward takes neither: a
+gradient through grouped or strided K/V raises.  The kernels are compiled for head
 dims 64 and 128 (``HEAD_DIMS``); the wrappers zero-pad any head dim up to
 128 to the next of them and slice the padding off the results, which is
 exact: zero columns add nothing to q·kᵀ, and the padded columns of o, dq,
@@ -55,6 +62,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import profiling
 from . import _build
 
 launches = 0      # K1 launches so far; chip_smoke.py resets and reads it
@@ -86,10 +94,26 @@ def _acc_dtype(t):
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
+def _repeat_kv(q, k, v):
+    """k and v with each of their Hkv heads repeated for the H / Hkv query
+    heads that read it (``repeat_interleave``: query head h reads KV head
+    h // (H / Hkv)); themselves when the head counts agree."""
+    h, hkv = q.shape[2], k.shape[2]
+    if h == hkv:
+        return k, v
+    if h % hkv:
+        raise ValueError(f'flash_attention: {h} query heads over {hkv} KV '
+                         'heads')
+    return (k.repeat_interleave(h // hkv, dim=2),
+            v.repeat_interleave(h // hkv, dim=2))
+
+
 def flash_attention_plain(q, k, v, scale):
-    """(B, N, H, D) x (B, M, H, D) -> (B, N, H, D); fp32 logits and softmax,
-    probabilities cast to the input type before the second product (the
-    JAX package's ``_xla_attention``)."""
+    """(B, N, H, D) x (B, M, Hkv, D) -> (B, N, H, D); fp32 logits and
+    softmax, probabilities cast to the input type before the second product
+    (the JAX package's ``_xla_attention``); Hkv < H groups the query heads
+    (``_repeat_kv``)."""
+    k, v = _repeat_kv(q, k, v)
     acc = _acc_dtype(q)
     logits = torch.einsum('bnhd,bmhd->bhnm', (q * scale).to(acc), k.to(acc))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -150,7 +174,10 @@ def flash_attention_tiled(q, k, v, scale):
     with zero rows past M whose scores are set to −inf, zero query rows
     past N, a base-2 online softmax (running max, rescale, running sum from
     the unrounded p), P rounded to the operand type before P·V, the output
-    scaled by 1/l, and lse = max·ln 2 + log l (natural log, (B, H, N))."""
+    scaled by 1/l, and lse = max·ln 2 + log l (natural log, (B, H, N)).
+    Grouped K/V are read as the kernel reads them, query head h from KV head
+    h // (H / Hkv)."""
+    k, v = _repeat_kv(q, k, v)
     acc = _acc_dtype(q)
     n, m, d_in = q.shape[1], k.shape[1], q.shape[-1]
     dh = kernel_head_dim(d_in)
@@ -220,7 +247,9 @@ def _kernel(name):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         if name == 'fwd':
             fn = _build.load('flash_attention').flash_attention_fwd
-            fn.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float, i32, ptr]
+            i64 = ctypes.c_longlong
+            fn.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 4
+                           + [ctypes.c_float, i32, ptr])
         else:
             fn = _build.load('flash_attention_bwd').flash_attention_bwd
             fn.argtypes = [ptr] * 9 + [i32] * 5 + [ctypes.c_float, i32, ptr]
@@ -229,8 +258,10 @@ def _kernel(name):
     return _fns[name]
 
 
-def _check_operands(q, k, v, scale):
-    """Raise on what the kernels do not take."""
+def _check_operands(q, k, v, scale, strided=False):
+    """Raise on what the kernels do not take.  ``strided`` (the forward):
+    k and v may have fewer heads than q, dividing them, and batch and row
+    strides of their own."""
     if q.device.type != 'cuda':
         raise ValueError(f'flash_attention: unsupported device {q.device}')
     if not scale > 0:
@@ -242,11 +273,19 @@ def _check_operands(q, k, v, scale):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f'flash_attention kernel takes fp32 or bf16 operands '
                         f'of one type, got {q.dtype}, {k.dtype}, {v.dtype}')
-    if k.shape != (b, m, h, d) or v.shape != k.shape:
+    hkv = k.shape[2] if strided and k.ndim == 4 else h
+    if (k.shape != (b, m, hkv, d) or v.shape != k.shape or h % hkv):
         raise ValueError(f'flash_attention: shapes q {tuple(q.shape)}, '
                          f'k {tuple(k.shape)}, v {tuple(v.shape)}')
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+    if not (q.is_contiguous() and (strided or (k.is_contiguous()
+                                               and v.is_contiguous()))):
         raise ValueError('flash_attention kernel takes contiguous operands')
+    if strided and any(t.stride(3) != 1 or t.stride(2) != d
+                       or t.stride(0) % 8 or t.stride(1) % 8 for t in (k, v)):
+        raise ValueError(f'flash_attention kernel takes k and v whose heads '
+                         f'and dims are contiguous and whose batch and row '
+                         f'strides are multiples of 8 elements: k '
+                         f'{k.stride()}, v {v.stride()}')
     if not (k.device == q.device and v.device == q.device):
         raise ValueError('flash_attention: operands on different devices')
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -256,8 +295,9 @@ def _check_operands(q, k, v, scale):
 
 def _launch_forward(q, k, v, scale, with_lse):
     """K1 on CUDA operands -> (o, lse or None); head dims below a compiled
-    one are zero-padded to it (see the module's docstring)."""
-    _check_operands(q, k, v, scale)
+    one are zero-padded to it (see the module's docstring); k and v may be
+    grouped and strided (``_check_operands``)."""
+    _check_operands(q, k, v, scale, strided=True)
     b, n, h, d_in = q.shape
     d = kernel_head_dim(d_in)
     q, k, v = (_pad_head(t, d) for t in (q, k, v))
@@ -266,12 +306,15 @@ def _launch_forward(q, k, v, scale, with_lse):
     lse = (torch.empty(b, h, n, device=q.device, dtype=torch.float32)
            if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernel('fwd')(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(),
-                             None if lse is None else lse.data_ptr(),
-                             b, n, k.shape[1], h, d, float(scale),
-                             _DTYPES[q.dtype], stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, n, k.shape[1], h,
+            k.shape[2], d, k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(scale), _DTYPES[q.dtype], stream)
+    if torch.cuda.current_device() == q.device.index:
+        err = _kernel('fwd')(*args)
+    else:
+        with torch.cuda.device(q.device):
+            err = _kernel('fwd')(*args)
     _build.check(err, 'flash_attention')
     launches += 1
     return (out if d == d_in else out[..., :d_in].contiguous()), lse
@@ -340,13 +383,34 @@ class _FlashAttention(torch.autograd.Function):
                 dv if need[2] else None, None)
 
 
+def attention_cost(q, k):
+    """(operations, K and V bytes) of one call: 4·B·H·N·M·D, and K and V
+    read once, each KV head once."""
+    b, n, h, d = q.shape
+    m, hkv = k.shape[1], k.shape[2]
+    return 4 * b * h * n * m * d, 2 * b * m * hkv * d * k.element_size()
+
+
 def flash_attention(q, k, v, scale):
     """K1 on a CUDA tensor, the plain version on a CPU tensor.  When a
     gradient can flow (grad mode on and an operand requires it) the call goes
     through the ``autograd.Function``, so the result carries a ``grad_fn``
-    whose backward is K4; otherwise it is the bare forward."""
+    whose backward is K4; otherwise it is the bare forward, which also takes
+    grouped and strided K/V (the module's docstring).  While the port's
+    counters record (or a graph's capture tallies them), each call adds its
+    operations and K/V bytes to ``pm.attn.ops`` and ``pm.attn.kv_bytes``."""
+    if profiling.counting():
+        ops, kv_bytes = attention_cost(q, k)
+        profiling.count('pm.attn.ops', ops)
+        profiling.count('pm.attn.kv_bytes', kv_bytes)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if k.shape[2] != q.shape[2] or not (k.is_contiguous()
+                                            and v.is_contiguous()):
+            raise NotImplementedError(
+                'flash_attention: no backward through grouped-query or '
+                'strided K/V (kernel K4 takes contiguous K/V with the '
+                "queries' heads)")
         return _FlashAttention.apply(q, k, v, scale)
     if q.device.type == 'cpu':
         return flash_attention_plain(q, k, v, scale)

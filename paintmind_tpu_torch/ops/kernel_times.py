@@ -10,6 +10,7 @@ part of a kernel, in one run on one card:
     python3 paintmind_tpu_torch/ops/kernel_times.py --define K3_NO_SELECT
     python3 paintmind_tpu_torch/ops/kernel_times.py --root DIR --kernels K3r
     python3 paintmind_tpu_torch/ops/kernel_times.py --kernels K5
+    python3 paintmind_tpu_torch/ops/kernel_times.py --kernels K1 K5e128
 
 ``--define`` compiles the kernels with a macro that cuts a part out
 (``K3_NO_SELECT``: no top-k lists; ``K3_NO_EXP``: no exp and sum;
@@ -17,6 +18,12 @@ part of a kernel, in one run on one card:
 or stores after a tile's products).  The results are then wrong; only
 the time says what that part costs.  Launches are queued behind a device-side
 sleep, so the time is the device's and not the host's rate of launching.
+
+``K1`` and ``K5e128`` time sdar-30b-a3b's calls (a checkout before the
+grouped-query K1 and the 128-expert K5 cannot run them): K1 over grouped
+K/V read in place from the KV cache, beside SDPA on the repeated K/V, and
+K5 at 128 bias-free experts of 768, beside the padded pair over the
+buffer that dropless capacity gives it.
 """
 
 import argparse
@@ -35,7 +42,8 @@ def main():
     parser.add_argument('--define', action='append', default=[],
                         help='macro to compile the kernels with')
     parser.add_argument('--kernels', nargs='+', default=['K2', 'K3', 'K3r', 'K5'],
-                        choices=['K2', 'K3', 'K3r', 'K5'], help='kernels to time')
+                        choices=['K1', 'K2', 'K3', 'K3r', 'K5', 'K5e128'],
+                        help='kernels to time')
     args = parser.parse_args()
     sys.path[0] = args.root  # not this directory: its modules are the package's
     import torch
@@ -96,6 +104,82 @@ def main():
     del logits
     if 'K5' in args.kernels:
         k5_times(device_ms, g)
+    if 'K1' in args.kernels:
+        k1_cache_times(device_ms, g)
+    if 'K5e128' in args.kernels:
+        k5_sdar_times(device_ms, g)
+
+
+H100 = {'bf16': 989e12, 'bytes': 3.35e12}  # the data sheet's peaks at 700 W
+
+
+def _bound_ms(ops, nbytes):
+    t_ops, t_bytes = ops / H100['bf16'] * 1e3, nbytes / H100['bytes'] * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def k1_cache_times(device_ms, g):
+    """K1 as sdar-30b-a3b's block passes call it at B = 64: 64 queries of
+    32 heads over the first M rows of a (64, 1101, 4, 128) bf16 cache (4 KV
+    heads), at the first block's M = 141 and the last one's M = 1101;
+    SDPA on the same K/V repeated per query head and made contiguous."""
+    import torch
+    import torch.nn.functional as F
+    from paintmind_tpu_torch.ops import flash_attention as fa
+    b, n, h, hk, d, rows = 64, 64, 32, 4, 128, 1101
+    q = torch.randn(b, n, h, d, device='cuda', generator=g).bfloat16()
+    kc = torch.randn(b, rows, hk, d, device='cuda', generator=g).bfloat16()
+    vc = torch.randn(b, rows, hk, d, device='cuda', generator=g).bfloat16()
+    for m in (141, 1101):
+        k, v = kc[:, :m], vc[:, :m]
+        ms = device_ms(lambda: fa.flash_attention(q, k, v, d ** -0.5))
+        kt, vt = (t.repeat_interleave(h // hk, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kt, vt, scale=d ** -0.5))
+        ops = 4 * b * h * n * m * d
+        bms, by = _bound_ms(ops, (2 * b * n * h * d + 2 * b * m * hk * d) * 2)
+        print(f'K1 sdar cache B={b} N={n} M={m} H={h} Hkv={hk} D={d}: '
+              f'{ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms '
+              f'({by}), SDPA on repeated K/V {lib:.4f} ms', flush=True)
+
+
+def k5_sdar_times(device_ms, g):
+    """K5 at sdar-30b-a3b's layer call: T = 4096 tokens (a block pass at
+    B = 64), D = 2048, h = 768, 128 bias-free experts, top-8, dropless:
+    32768 rows spread over the experts as a seeded multinomial draw of a
+    token's 8 experts; the padded pair over the (128, 4096, 2048) buffer
+    that capacity T gives it."""
+    import torch
+    from paintmind_tpu_torch.ops import moe_experts as me
+    t, d, h, e, k = 4096, 2048, 768, 128, 8
+    idx = torch.multinomial(torch.ones(t, e, device='cuda'), k, generator=g)
+    counts = idx.reshape(-1).bincount(minlength=e)
+    off = torch.nn.functional.pad(counts.cumsum(0), (1, 0)).int()
+    rows = k * t
+    xp = torch.randn(rows, d, device='cuda', generator=g).bfloat16()
+    w12 = (torch.randn(e, 2 * h, d, device='cuda', generator=g) * 0.03).bfloat16()
+    w3 = (torch.randn(e, d, h, device='cuda', generator=g) * 0.04).bfloat16()
+    ms = device_ms(lambda: me.grouped_swiglu(xp, off, w12, None, w3, None))
+    hit = int((counts > 0).sum())
+    ops = 6 * d * h * rows
+    bms, by = _bound_ms(ops, (hit * 3 * d * h + rows * (2 * d + 2 * h)) * 2)
+    buf = torch.randn(e, t, d, device='cuda', generator=g).bfloat16()
+
+    def padded():
+        x1, x2 = torch.bmm(buf, w12.transpose(1, 2)).chunk(2, -1)
+        return torch.bmm(torch.nn.functional.silu(x1) * x2, w3.transpose(1, 2))
+    ms_pad = device_ms(padded)
+    x = torch.randn(t, d, device='cuda', generator=g).bfloat16()
+    flat = (torch.arange(e, device='cuda')[:, None] == idx.t().reshape(1, -1)).int()
+    pos = ((flat.cumsum(1) - flat) * flat).sum(0).reshape(k, t).t()
+    keep = torch.ones_like(pos, dtype=torch.bool)
+    ms_disp = device_ms(lambda: me.dispatch(x, idx, pos, keep, t, e))
+    print(f'K5 sdar T={t} rows={rows} E={e} ({hit} hit, {int(counts.min())}-'
+          f'{int(counts.max())} rows an expert): {ms:.4f} ms = '
+          f'{ops / ms / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({by}); the padded '
+          f'pair over {e * t} slots {ms_pad:.4f} ms; dispatch {ms_disp:.4f} ms',
+          flush=True)
 
 
 def k5_times(device_ms, g):

@@ -36,6 +36,11 @@ is 144 columns of H and holds the matching rows of both halves of w12
 depth: the same bits every run.  ``grouped_swiglu_tiled`` is the kernels'
 schedule and arithmetic, tile by tile, on the CPU.
 
+Up to 128 experts (SDAR-30B-A3B's count), and experts without biases:
+``b12`` and ``b3`` may be None (the kernels then load and add nothing).  A
+hidden width that is not a multiple of K5a's 144 columns (SDAR's 768) ends in
+a ragged column tile, computed and not stored past h.
+
 The wrappers take the plain versions for a tensor on the CPU, launch the
 kernels for a bf16 tensor on the card, and raise otherwise.
 """
@@ -55,7 +60,7 @@ BLOCK_ROWS = 128   # rows of a tile (BM in the kernel)
 W12_COLS = 144     # K5a: columns of H a tile
 W3_COLS = 256      # K5b: columns of O a tile
 DEPTH = 64         # depth of a ring stage (BK)
-MAX_EXPERTS = 64
+MAX_EXPERTS = 128
 _fns = {}
 _sms = {}
 
@@ -94,8 +99,9 @@ def dispatch_plain(xt, idx, pos, keep, cap, num_experts):
 def dispatch(xt, idx, pos, keep, cap, num_experts):
     """The packed layout of a routing and the packed tokens, ``(off, row,
     xp)`` as ``dispatch_plain`` gives them: the plain version on the CPU; on
-    the card two kernels, a one-block count of each expert's rows (warp
-    ballots, no atomics) and a pass a warp an assignment that places it and
+    the card two kernels, a one-block count of each expert's rows (integer
+    atomics in shared memory: exact counts) and a pass a warp an assignment
+    that places it and
     copies its token (rows of xp from ``off[E]`` on unset).  They read the
     routing's tensors in their strides; the host never waits."""
     if xt.device.type == 'cpu':
@@ -181,11 +187,25 @@ def _bf16_on_card(what, *tensors):
                         f'{[x.dtype for x in tensors]}')
 
 
+def _shape(t):
+    return None if t is None else tuple(t.shape)
+
+
+def _ptr(t):
+    """A bias's address, or null for experts without biases."""
+    return None if t is None else t.data_ptr()
+
+
+def _bias(b, e):
+    """Expert e's bias in fp32, or 0 for experts without biases."""
+    return 0.0 if b is None else b[e].float()
+
+
 def grouped_swiglu_plain(xp, off, w12, b12, w3, b3):
     """Each expert's packed rows through its SwiGLU: sums in fp32, H rounded
     to the rows' type once (after ``silu(x1)·x2``), O once.  xp (rows, D),
-    w12 (E, 2h, D), b12 (E, 2h), w3 (E, D, h), b3 (E, D) -> O (rows, D),
-    zero past ``off[E]``."""
+    w12 (E, 2h, D), b12 (E, 2h) or None, w3 (E, D, h), b3 (E, D) or None
+    -> O (rows, D), zero past ``off[E]``."""
     hidden = w12.shape[1] // 2
     out = xp.new_zeros(xp.shape[0], w3.shape[1])
     bounds = off.tolist()
@@ -193,9 +213,9 @@ def grouped_swiglu_plain(xp, off, w12, b12, w3, b3):
         lo, hi = bounds[e], bounds[e + 1]
         if lo == hi:
             continue
-        a = xp[lo:hi].float() @ w12[e].float().t() + b12[e].float()
+        a = xp[lo:hi].float() @ w12[e].float().t() + _bias(b12, e)
         h = (F.silu(a[:, :hidden]) * a[:, hidden:]).to(xp.dtype)
-        out[lo:hi] = (h.float() @ w3[e].float().t() + b3[e].float()).to(xp.dtype)
+        out[lo:hi] = (h.float() @ w3[e].float().t() + _bias(b3, e)).to(xp.dtype)
     return out
 
 
@@ -261,9 +281,11 @@ def grouped_swiglu_tiled(xp, off, w12, b12, w3, b3):
         x1 = _tile_sums(xp, w12f, row0, e * h2 + n0, W12_COLS)
         x2 = _tile_sums(xp, w12f, row0, e * h2 + hidden + n0, W12_COLS)
         end = min(hidden, n0 + W12_COLS)  # the epilogue reads no bias past h
-        b1 = F.pad(b12[e, n0:end].float(), (0, n0 + W12_COLS - end))
-        b2 = F.pad(b12[e, hidden + n0:hidden + end].float(),
-                   (0, n0 + W12_COLS - end))
+        b1 = b2 = 0.0
+        if b12 is not None:
+            b1 = F.pad(b12[e, n0:end].float(), (0, n0 + W12_COLS - end))
+            b2 = F.pad(b12[e, hidden + n0:hidden + end].float(),
+                       (0, n0 + W12_COLS - end))
         _store(h, written, F.silu(x1 + b1) * (x2 + b2), row0, row_end, n0)
     if not written[:total].all():
         raise AssertionError('K5a left a row of H unwritten')
@@ -271,8 +293,8 @@ def grouped_swiglu_tiled(xp, off, w12, b12, w3, b3):
     written = torch.zeros(rows, d, dtype=torch.bool)
     for e, row0, row_end, n0 in _tile_table(bounds, d, W3_COLS):
         acc = _tile_sums(h, w3f, row0, e * d + n0, W3_COLS)
-        bias = F.pad(b3[e, n0:n0 + W3_COLS].float(),
-                     (0, max(0, n0 + W3_COLS - d)))
+        bias = 0.0 if b3 is None else F.pad(b3[e, n0:n0 + W3_COLS].float(),
+                                            (0, max(0, n0 + W3_COLS - d)))
         _store(o, written, acc + bias, row0, row_end, n0)
     if not written[:total].all():
         raise AssertionError('K5b left a row of O unwritten')
@@ -283,31 +305,35 @@ def grouped_swiglu(xp, off, w12, b12, w3, b3):
     """K5a and K5b on a bf16 tensor on the card (the rows past ``off[E]``
     of the result unset), the plain version on the CPU.  xp (rows, D) with
     D a multiple of 8; w12 (E, 2h, D), h a multiple of 8; b12 (E, 2h); w3
-    (E, D, h); b3 (E, D); off (E + 1,) int32 -> O (rows, D)."""
+    (E, D, h); b3 (E, D); off (E + 1,) int32 -> O (rows, D).  b12 and b3
+    are both None for experts without biases."""
     if xp.device.type == 'cpu':
         return grouped_swiglu_plain(xp, off, w12, b12, w3, b3)
     if xp.device.type != 'cuda':
         raise ValueError(f'grouped_swiglu: device {xp.device}')
-    _bf16_on_card('grouped_swiglu', xp, w12, b12, w3, b3)
+    biases = [b for b in (b12, b3) if b is not None]
+    _bf16_on_card('grouped_swiglu', xp, w12, w3, *biases)
     rows, d = xp.shape
     e, h2, d_in = w12.shape
     hidden = h2 // 2
-    if (d_in != d or h2 % 2 or tuple(b12.shape) != (e, h2)
-            or tuple(w3.shape) != (e, d, hidden) or tuple(b3.shape) != (e, d)
+    if (d_in != d or h2 % 2 or len(biases) == 1
+            or (b12 is not None and (tuple(b12.shape) != (e, h2)
+                                     or tuple(b3.shape) != (e, d)))
+            or tuple(w3.shape) != (e, d, hidden)
             or tuple(off.shape) != (e + 1,)):
         raise ValueError(f'grouped_swiglu: shapes x {tuple(xp.shape)}, w12 '
-                         f'{tuple(w12.shape)}, b12 {tuple(b12.shape)}, w3 '
-                         f'{tuple(w3.shape)}, b3 {tuple(b3.shape)}, off '
+                         f'{tuple(w12.shape)}, b12 {_shape(b12)}, w3 '
+                         f'{tuple(w3.shape)}, b3 {_shape(b3)}, off '
                          f'{tuple(off.shape)}')
     if d % 8 or hidden % 8 or e > MAX_EXPERTS or off.dtype != torch.int32:
         raise ValueError(f'grouped_swiglu kernel takes widths that are '
                          f'multiples of 8, at most {MAX_EXPERTS} experts and '
                          f'int32 offsets: D {d}, h {hidden}, E {e}, {off.dtype}')
-    _check_card('grouped_swiglu', xp, off, w12, b12, w3, b3)
+    _check_card('grouped_swiglu', xp, off, w12, w3, *biases)
     h = torch.empty(rows, hidden, dtype=xp.dtype, device=xp.device)
     out = torch.empty(rows, d, dtype=xp.dtype, device=xp.device)
-    _launch('moe_experts', xp.data_ptr(), w12.data_ptr(), b12.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), off.data_ptr(), h.data_ptr(),
+    _launch('moe_experts', xp.data_ptr(), w12.data_ptr(), _ptr(b12),
+            w3.data_ptr(), _ptr(b3), off.data_ptr(), h.data_ptr(),
             out.data_ptr(), rows, d, hidden, e, 3, _sm_count(xp.device),
             device=xp.device)
     global launches

@@ -176,6 +176,12 @@ class GenerationEngine:
                  latency_window=512, max_queue=None, mesh=None,
                  sequence_parallel=False, pp_microbatches=None):
         self._min_bucket = 1
+        block = getattr(pipeline.config, 'block', 'maskgit')
+        if block != 'maskgit':
+            raise NotImplementedError(
+                f'GenerationEngine serves the MaskGIT stacks; the {block!r} '
+                'stack (block diffusion over a KV cache) is not served: call '
+                'Pipeline.generate')
         if mesh is not None:
             from ..parallel.mesh import check_mesh
             check_mesh(mesh, 'GenerationEngine')

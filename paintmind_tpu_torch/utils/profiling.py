@@ -44,6 +44,15 @@ adds an interval measured across threads (a request's queue wait);
 ``count(name, value)`` adds to a counter (a device tensor is summed on the
 device and read at ``snapshot``).
 
+CUDA graphs.  A captured graph replays its kernels without running the
+Python that launched them, so neither its spans nor its counters record on
+a replay.  ``tally()`` around a capture collects what the capture counts,
+whether or not spans record (host numbers summed; device tensors summed by
+kernels captured into the graph, so every replay refreshes them), and
+``recount(tally)`` after each replay adds it to the counters while they
+record.  Spans do not record inside a ``tally()`` block (a timing event
+cannot be recorded into a capture); a span around the replay times it.
+
 What the spans and counters are and which metric reads each:
 ``PERF.md`` section 3.
 """
@@ -93,7 +102,7 @@ def trace(log_dir, *, activities=None):
 
 _recording = 0                  # depth of recording() blocks, process-wide
 _lock = threading.Lock()        # guards everything below
-_local = threading.local()      # .stack: this thread's open spans
+_local = threading.local()      # .stack: this thread's open spans; .tally
 _pending = collections.deque()  # closed spans whose events are unread
 _events = []                    # pooled timing events
 _totals = {}                    # name -> [count, host, host self, dev, dev self]
@@ -105,6 +114,39 @@ _ids = itertools.count(1)
 def enabled():
     """Whether spans and counters record now."""
     return bool(_recording or _autograd_profiler._is_profiler_enabled)
+
+
+def counting():
+    """Whether a ``count`` now adds to something: the counters record, or
+    this thread is inside a ``tally()`` block."""
+    return enabled() or getattr(_local, 'tally', None) is not None
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect this thread's counts in the block into the yielded dict
+    (name -> a number, or a 0-d device tensor) in place of the counters,
+    whether or not they record; no span records inside.  Around a CUDA
+    graph's capture (entered inside it): a counted tensor's sum is then
+    formed by kernels of the graph, into a tensor that each replay
+    rewrites (``recount``)."""
+    counts, tensors = {}, {}
+    _local.tally = (counts, tensors)
+    try:
+        yield counts
+    finally:
+        _local.tally = None
+    for name, parts in tensors.items():
+        counts[name] = torch.cat([t.reshape(-1) for t in parts]).sum()
+
+
+def recount(counts):
+    """Add a ``tally()``'s counts to the counters (after a replay of the
+    graph they were captured with), when the counters record."""
+    if not enabled():
+        return
+    for name, value in counts.items():
+        count(name, value)
 
 
 @contextlib.contextmanager
@@ -158,7 +200,8 @@ def annotate(name, **attrs):
     call).  ``attrs`` are kept with the span and given to the profiler's
     range as its ``args``; ``id`` is inherited from the parent span when
     not given (a span without one takes a fresh id)."""
-    if not (_recording or _autograd_profiler._is_profiler_enabled):
+    if not (_recording or _autograd_profiler._is_profiler_enabled) \
+            or getattr(_local, 'tally', None) is not None:
         _OFF.name, _OFF.attrs = name, attrs
         return _OFF
     return _Span(name, attrs)
@@ -285,7 +328,16 @@ def record(name, start_ns, end_ns, **attrs):
 
 def count(name, value):
     """Add ``value`` (a number, or a tensor: its sum, taken on its device
-    and read at ``snapshot``) to the counter ``name``."""
+    and read at ``snapshot``) to the counter ``name``, or inside a
+    ``tally()`` block to its tally."""
+    held = getattr(_local, 'tally', None)
+    if held is not None:
+        counts, tensors = held
+        if isinstance(value, torch.Tensor):
+            tensors.setdefault(name, []).append(value.detach())
+        else:
+            counts[name] = counts.get(name, 0) + value
+        return
     if not (_recording or _autograd_profiler._is_profiler_enabled):
         return
     if isinstance(value, torch.Tensor):

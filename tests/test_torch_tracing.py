@@ -189,7 +189,9 @@ def test_generate_spans(kind, dense):
                         ('route', 'dispatch', 'experts', 'combine', 'aux')]
     if kind == 'dense':
         assert not set(moe) & set(spans)
-        assert snap['counters'] == {}
+        # no routed layer: the attention's counters alone
+        assert set(snap['counters']) == {'pm.attn.ops', 'pm.attn.kv_bytes'}
+        assert snap['counters']['pm.attn.ops'] > 0
     else:
         calls = 2 * DEPTH['moe'] * STEPS        # guided: two passes a step
         assert all(spans[n]['count'] == calls for n in moe)
