@@ -6,6 +6,8 @@
                                      # stop (a short first run after a kernel
                                      # edit; prints no result line)
     python3 chip_smoke.py multigpu   # build, then the multi-GPU phase only
+    python3 chip_smoke.py norm       # LayerNorm's one bf16 pass against its
+                                     # fp32 form only
 
 Phases, each printed on its own line(s); any failure raises and the script
 exits non-zero with no result line:
@@ -23,7 +25,9 @@ exits non-zero with no result line:
      variant; K4 in bf16 only), K2 at code dims 8, 16, 12, 48 and 100;
      sdar-30b-a3b's calls: K1 over grouped K/V read in place from a KV
      cache, K5 at 128 bias-free experts of 768 (dropless), K6 (QK-norm
-     and RoPE) into the cache; fp32 K1 is timed at one shape only;
+     and RoPE) into the cache; fp32 K1 is timed at one shape only; last,
+     ``LayerNorm``'s one bf16 pass bit-equal to its fp32 form at the batch
+     cells' shapes, both timed (``norm``: no kernel of the port's own);
   4. stage 1: the shipped vit-s-vqgan weights reconstruct 8 seeded 256²
      images through the kernels and through the plain versions; then a
      registered model of head dim 16 and code dim 8 runs ``generate``,
@@ -138,7 +142,7 @@ from paintmind_tpu_torch.models import quantize as tq
 from paintmind_tpu_torch.models import vqmodel as tvm
 from paintmind_tpu_torch.models.pipeline import (
     _transformer_logits, ids_to_tokens, pipeline_loss)
-from paintmind_tpu_torch.nn.core import init_module_, rope_tables
+from paintmind_tpu_torch.nn.core import LayerNorm, init_module_, rope_tables
 from paintmind_tpu_torch.ops import _build
 from paintmind_tpu_torch.ops import flash_attention as fa
 from paintmind_tpu_torch.ops import moe_experts as me
@@ -720,6 +724,41 @@ def check_sdar_graphs(g):
               f'sdar graphs: the {what} passes differ from the eager ones')
     log(f'sdar graphs: {len(tr._graphs)} positions captured, logits and KV '
         f'cache bit-equal eager / captured / replayed')
+
+
+# (B, N, D) bf16 activations of the batch cells' stage-2 norms:
+# v1_t2i_b32's and moe_lb_t2i_b64's contexts a call
+NORM_SHAPES = ((32, 1024, 1024), (64, 1024, 1024))
+
+
+def check_norm(g):
+    """``nn.core.LayerNorm`` on bf16 activations at ``NORM_SHAPES``: its one
+    pass (parameters in bf16) bit-equal to its fp32 form (the same values in
+    fp32 parameters: activations widened, normalised, rounded back).  Times
+    both beside the one pass's bound, 2 bytes read and 2 written an element;
+    returns nothing (no kernel of the port's own)."""
+    notes = []
+    for b, n, d in NORM_SHAPES:
+        x = (3 * torch.randn(b, n, d, device='cuda', generator=g)
+             + 0.5).bfloat16()
+        one = LayerNorm(d, device='cuda', dtype=torch.bfloat16)
+        fp32 = LayerNorm(d, device='cuda')
+        with torch.no_grad():
+            one.weight.copy_(1 + 0.1 * torch.randn(d, device='cuda',
+                                                   generator=g))
+            one.bias.copy_(0.1 * torch.randn(d, device='cuda', generator=g))
+            fp32.weight.copy_(one.weight)
+            fp32.bias.copy_(one.bias)
+            got, want = one(x), fp32(x)
+            check(torch.equal(got, want),
+                  f'LayerNorm ({b}, {n}, {d}) bf16: the one pass differs from '
+                  f'the fp32 form in {int((got != want).sum())} elements')
+            ms = time_ms(lambda: one(x), 20)
+            fp32_ms = time_ms(lambda: fp32(x), 20)
+        bms, by = bound(4 * x.numel(), 0, torch.bfloat16)
+        notes.append(f'({b}, {n}, {d}): bit-equal, one pass ms={ms:.4f} fp32 '
+                     f'form ms={fp32_ms:.4f} bound_ms={bms:.4f} ({by})')
+    log('LayerNorm bf16 ' + '; '.join(notes) + f'; {CARD}')
 
 
 def k5_against_fp32(xp, off, weights, what):
@@ -3569,7 +3608,7 @@ KERNEL_LIBRARIES = {'K1': ('flash_attention',),
                     'K2': ('vq_lookup',), 'K3': ('sampling',),
                     'K3r': ('sampling',),
                     'K4': ('flash_attention', 'flash_attention_bwd'),
-                    'K5': ('moe_experts',), 'K6': ('rope',)}
+                    'K5': ('moe_experts',), 'K6': ('rope',), 'norm': ()}
 
 
 def main():
@@ -3591,7 +3630,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     checks = {'K1': check_k1, 'K2': check_k2, 'K3': check_k3,
               'K3r': check_k3_radix, 'K4': check_k4, 'K5': check_k5,
-              'K6': check_k6}
+              'K6': check_k6, 'norm': check_norm}
     only = sys.argv[1:]
     multigpu_only = only == ['multigpu']
     if multigpu_only:
@@ -3602,7 +3641,8 @@ def main():
         lib for name in only for lib in KERNEL_LIBRARIES[name]))
     t0 = time.perf_counter()
     seconds = _build.build(libraries)
-    with ThreadPoolExecutor(len(libraries)) as pool:  # one cuobjdump each
+    # one cuobjdump each (``norm`` alone builds none)
+    with ThreadPoolExecutor(max(1, len(libraries))) as pool:
         sass = dict(zip(libraries, pool.map(read_sass, libraries)))
     for name in libraries:
         report_build(name, seconds[name], sass[name])

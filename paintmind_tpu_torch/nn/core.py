@@ -3,7 +3,10 @@ rotary position embedding, initialisers.
 
 Numerics policy (as in ``paintmind_tpu/nn/core.py``): a layer computes in
 the dtype of its incoming activations, casting its own parameters to it,
-except the norms' statistics, which always run in fp32.
+except the norms' statistics, which always run in fp32.  ``LayerNorm`` keeps
+them in fp32 inside one ``F.layer_norm`` call where its parameters are in
+the activations' type (serving), and widens the activations to fp32 where
+they are not (training: bf16 activations over fp32 master parameters).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import profiling
+
 
 class Linear(nn.Linear):
     """``nn.Linear`` whose parameters follow the activation dtype (JAX
@@ -27,14 +32,35 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, eps 1e-5, output in the input dtype."""
+    """LayerNorm with fp32 statistics, eps 1e-5, output in the input dtype.
+
+    Where the weight and the bias are in the activations' type, one pass:
+    ``F.layer_norm`` on the tensors as they are.  PyTorch's kernels keep the
+    mean and rstd in fp32 for a bf16 or fp16 input, evaluate
+    ``weight·rstd·(x − mean) + bias`` in fp32 and round once on the store,
+    and no fp32 copy of the activations is written (counter
+    ``pm.norm.one_pass``).  On the card the bits are the fp32 form's (the
+    same Welford order for every input type); the CPU's reduced-type kernel
+    sums in another order, within one ulp of it.  Otherwise the
+    fp32 form: the activations widened to fp32, normalised with the
+    parameters in fp32 and rounded back (counter ``pm.norm.fp32_copies``).
+    Training takes it, with bf16 activations over fp32 master parameters:
+    rounding the masters to bf16 would normalise with other values than
+    the parameters the update holds."""
 
     def __init__(self, dim, *, device=None, dtype=None):
         super().__init__(dim, eps=1e-5, device=device, dtype=dtype)
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape,
-                         self.weight.float(), self.bias.float(), self.eps)
+        w, b = self.weight, self.bias
+        one_pass = w.dtype == b.dtype == x.dtype
+        if profiling.counting():
+            profiling.count('pm.norm.one_pass' if one_pass
+                            else 'pm.norm.fp32_copies', 1)
+        if one_pass:
+            return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+        y = F.layer_norm(x.float(), self.normalized_shape, w.float(),
+                         b.float(), self.eps)
         return y.to(x.dtype)
 
 

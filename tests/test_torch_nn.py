@@ -1,11 +1,16 @@
 """Port nn primitives, blocks and the weight bridge held against the JAX
 package on the CPU, in fp32.  Inputs and parameters come from seeded numpy
 or JAX inits; the JAX tree reaches the port through
-``flatten_tree`` -> ``convert.from_jax``.  Tolerance: 1e-5 max abs."""
+``flatten_tree`` -> ``convert.from_jax``.  Tolerance: 1e-5 max abs.
+``LayerNorm``'s one pass is held against its fp32 form in bf16, fp16 and
+fp32."""
+
+import copy
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 import jax
@@ -21,6 +26,7 @@ from paintmind_tpu_torch.nn import attention as tatt
 from paintmind_tpu_torch.nn import core as tcore
 from paintmind_tpu_torch.nn import mlp as tmlp
 from paintmind_tpu_torch.nn import transformer as ttr
+from paintmind_tpu_torch.utils import profiling
 from paintmind_tpu_torch.utils.checkpoint import load_flat
 
 TOL = 1e-5
@@ -54,6 +60,85 @@ def test_linear_layernorm_swiglu(rng):
     p = jmlp.init_swiglu(jax.random.PRNGKey(1), 24, 64)
     _close(_port(tmlp.SwiGLU(24, 64), p)(torch.from_numpy(x)),
            jmlp.swiglu(p, jnp.asarray(x)))
+
+
+def _ulps(a, b):
+    """Distance in units of the last place, element by element, between two
+    tensors of one floating type (-0 and +0 are 0 apart)."""
+    bits = {2: (torch.int16, 0x7FFF), 4: (torch.int32, 0x7FFFFFFF)}
+    ints, mag = bits[a.element_size()]
+
+    def ordered(t):
+        i = t.view(ints).long()
+        return torch.where(i < 0, -(i & mag), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _fp32_form(x, w, b):
+    """``LayerNorm``'s fp32 form, written out: x, weight and bias widened
+    to fp32, the result rounded to x's type."""
+    return F.layer_norm(x.float(), x.shape[-1:], w.float(), b.float(),
+                        1e-5).to(x.dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_layernorm_one_pass(dtype):
+    """Parameters in the activations' type: one ``F.layer_norm`` call, the
+    fp32 form's value (fp32 bit-equal; bf16 and fp16 within one ulp on the
+    CPU, whose reduced-type kernel sums in another order), counted as
+    ``pm.norm.one_pass``.  fp32 parameters under bf16 or fp16 activations:
+    the fp32 form's bits and gradients, counted as ``pm.norm.fp32_copies``.
+    Nothing counts with recording off."""
+    g = torch.Generator().manual_seed(3)
+    d = 1024
+    x = (3 * torch.randn(4, 77, d, generator=g) + 0.5).to(dtype)
+    masters = tcore.LayerNorm(d)
+    with torch.no_grad():
+        masters.weight.copy_(1 + 0.1 * torch.randn(d, generator=g))
+        masters.bias.copy_(0.1 * torch.randn(d, generator=g))
+    same = copy.deepcopy(masters).to(dtype)
+    profiling.reset()
+    with profiling.recording():
+        got = same(x)
+        counts = profiling.snapshot()['counters']
+    assert counts == {'pm.norm.one_pass': 1.0}
+    want = _fp32_form(x, same.weight, same.bias)
+    assert got.dtype == dtype
+    ulps = _ulps(got, want)
+    print(f'{dtype}: {int((ulps > 0).sum())} of {got.numel()} elements one '
+          f'ulp off the fp32 form')
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        assert int(ulps.max()) <= 1
+
+    if dtype != torch.float32:
+        xg = x.clone().requires_grad_()
+        profiling.reset()
+        with profiling.recording():
+            got = masters(xg)
+            counts = profiling.snapshot()['counters']
+        assert counts == {'pm.norm.fp32_copies': 1.0}
+        w = masters.weight.detach().clone().requires_grad_()
+        b = masters.bias.detach().clone().requires_grad_()
+        xr = x.clone().requires_grad_()
+        want = _fp32_form(xr, w, b)
+        assert got.dtype == dtype and torch.equal(got, want)
+        up = torch.randn(got.shape, generator=g).to(dtype)
+        got.backward(up)
+        want.backward(up)
+        assert masters.weight.grad.dtype == masters.bias.grad.dtype \
+            == torch.float32
+        assert torch.equal(masters.weight.grad, w.grad)
+        assert torch.equal(masters.bias.grad, b.grad)
+        assert torch.equal(xg.grad, xr.grad)
+        assert masters.weight.grad.abs().sum() > 0
+
+    profiling.reset()
+    same(x)
+    masters(x)
+    assert profiling.snapshot()['counters'] == {}
 
 
 @pytest.mark.parametrize('context_dim', [None, 32, 40])

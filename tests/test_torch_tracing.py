@@ -17,6 +17,7 @@ import torch
 import paintmind_tpu_torch as pt
 from paintmind_tpu_torch import config as tcfg
 from paintmind_tpu_torch.models import pipeline as tpl
+from paintmind_tpu_torch.nn.core import LayerNorm
 from paintmind_tpu_torch.serving import (GenerateRequest, GenerationEngine,
                                          make_server)
 from paintmind_tpu_torch.serving.engine import _nearest_rank
@@ -189,9 +190,17 @@ def test_generate_spans(kind, dense):
                         ('route', 'dispatch', 'experts', 'combine', 'aux')]
     if kind == 'dense':
         assert not set(moe) & set(spans)
-        # no routed layer: the attention's counters alone
-        assert set(snap['counters']) == {'pm.attn.ops', 'pm.attn.kv_bytes'}
+        # no routed layer: the attention's and the norms' counters alone
+        assert set(snap['counters']) == {'pm.attn.ops', 'pm.attn.kv_bytes',
+                                          'pm.norm.one_pass'}
         assert snap['counters']['pm.attn.ops'] > 0
+        # parameters in the activations' type: every LayerNorm one pass,
+        # 3 a block and the final norm a step (at B <= 8 one pass over the
+        # [cond; uncond] rows), then the decoder's
+        decoder = sum(isinstance(m, LayerNorm)
+                      for m in pipe.vqgan.decoder.modules())
+        assert snap['counters']['pm.norm.one_pass'] == \
+            STEPS * (3 * DEPTH['dense'] + 1) + decoder
     else:
         calls = 2 * DEPTH['moe'] * STEPS        # guided: two passes a step
         assert all(spans[n]['count'] == calls for n in moe)
