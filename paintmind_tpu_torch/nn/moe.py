@@ -38,18 +38,18 @@ summed over the group.
 The experts are stacked: ``experts.w12`` and ``experts.w3`` are
 ``StackedLinear`` layers with weight (E, out, in) and bias (E, out).  The
 JAX package computes dispatch, experts and combine with XLA, outside any
-Pallas kernel.  Here ``'gather'`` takes one of two paths, by what the call
-can see:
+Pallas kernel.  Here a call takes one of two paths, by what it can see:
 
   * packed (``ops/moe_experts.py``, kernel K5): the kept assignments packed
     by expert, the experts run on those rows alone with the SwiGLU in the
     first product's epilogue, and a combine that reads only the kept rows.
-    Taken when nothing records a gradient, the experts are not carved over
-    a model axis, no data-parallel group routes the batch, and the tokens
-    are bf16 on the card (the kernels) or on the CPU (their plain version);
-  * padded: an (E, C, D) buffer run as one batched product
-    (``torch.baddbmm``) pair.  Everything else: training (K5 has no
-    backward), expert or data parallelism, fp32 and fp16 on the card.
+    Taken by ``'gather'`` when nothing records a gradient, with no expert
+    or data parallelism, for bf16 tokens on the card (the kernels) or any
+    on the CPU (their plain version);
+  * padded (``_padded``, one function for every placement): this rank's
+    experts on an (E, C, D) buffer of their slots, one batched product
+    pair.  Everything else: ``'dense'``, training (K5 has no backward),
+    expert or data parallelism, fp32 and fp16 on the card.
 """
 
 from __future__ import annotations
@@ -216,18 +216,13 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
     """x: (..., D) -> (y (..., D), aux).  ``aux``: ``lb_loss``,
     ``router_z``, ``dropped`` (0-d fp32) and ``expert_load`` ((E,) fp32).
 
-    ``dispatch``: ``'gather'`` runs the experts on the kept assignments
-    packed by expert where the call allows it (the packed path, K5: the
-    module's docstring); otherwise it writes each kept assignment's token
-    into its own (expert, queue) cell of an (E·C + 1, D) buffer by an indexed
-    assignment (the cells are unique, so no atomics and the same bits every
-    run; dropped assignments all land in the spare last row, which is cut
-    off), runs the experts as one batched product pair and gathers the
-    outputs back (the spare row reads 0); ``'dense'`` is the one-hot
-    (T, E, C) einsum form.  The two give the same routing and the same
-    result up to rounding.  ``'auto'`` is ``'dense'`` when the experts are
-    carved over a model axis of more than one rank and ``'gather'``
-    otherwise (the JAX package's ``_auto_dispatch``)."""
+    ``dispatch``: ``'gather'`` takes the packed path where the call allows
+    it (K5: the module's docstring), else the padded core ``_padded`` in its
+    indexed form; ``'dense'`` takes ``_padded`` in its one-hot einsum form.
+    The forms give the same routing and the same result up to rounding.
+    ``'auto'`` is ``'dense'`` when the experts are carved over a model axis
+    of more than one rank and ``'gather'`` otherwise (the JAX package's
+    ``_auto_dispatch``)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f'dispatch {dispatch!r} not in {DISPATCHES}')
     tp = module.tp
@@ -239,20 +234,15 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
             x = enter(x, tp)
         lead, d = x.shape[:-1], x.shape[-1]
         xt = x.reshape(-1, d)
-        t, e = xt.shape[0], module.num_experts
-        group = module.route_group
+        e, group = module.num_experts, module.route_group
         with annotate('pm.moe.route'):
             logits, probs, gate, idx, pos, keep, cap = route(
                 module, xt, num_selected, capacity_factor, group)
-            k = idx.shape[1]
             dt = x.dtype
             gk = gate.to(dt) * keep.to(dt)                      # (T, k)
         profiling.count('pm.moe.assignments', keep.numel())
         profiling.count('pm.moe.kept', keep)
-        if tp is not None:
-            y = _expert_parallel(module, xt, idx, pos, keep, gk, cap,
-                                 dispatch, tp)
-        elif packed:
+        if packed:
             with annotate('pm.moe.dispatch'):
                 off, row, xp = K5.dispatch(xt.contiguous(), idx, pos, keep, cap,
                                            e)
@@ -267,37 +257,8 @@ def moe_swiglu(module, x, num_selected=2, capacity_factor=1.25,
                                         _to(w3.bias, dt))
             with annotate('pm.moe.combine'):
                 y = K5.combine(out, row, gk)
-        elif dispatch == 'dense':
-            with annotate('pm.moe.dispatch'):
-                pos_oh = F.one_hot(torch.where(keep, pos, cap),
-                                   cap + 1)[..., :cap]
-                sel = F.one_hot(idx, e).to(dt)                  # (T, k, E)
-                pos_oh = pos_oh.to(dt)                          # (T, k, C)
-                disp = torch.einsum('tke,tkc->tec',
-                                    sel * keep[..., None].to(dt), pos_oh)
-                comb = torch.einsum('tke,tkc->tec', gk[..., None] * sel,
-                                    pos_oh)
-                expert_in = torch.einsum('tec,td->ecd', disp, xt)
-            with annotate('pm.moe.experts'):
-                expert_out = module.experts(expert_in)          # (E, C, Do)
-            with annotate('pm.moe.combine'):
-                y = torch.einsum('tec,ecd->td', comb, expert_out)
         else:
-            with annotate('pm.moe.dispatch'):
-                cell = torch.where(keep, idx * cap + pos,
-                                   e * cap).reshape(-1)
-                x_rep = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
-                buf = torch.index_put(xt.new_zeros(e * cap + 1, d), (cell,),
-                                      x_rep)
-            with annotate('pm.moe.experts'):
-                expert_out = module.experts(buf[:-1].view(e, cap, d))
-            with annotate('pm.moe.combine'):
-                out = F.pad(expert_out.reshape(e * cap, -1), (0, 0, 0, 1))
-                picked = out[cell].view(t, k, -1)
-                # one (1, k) x (k, Do) product a token: the k terms
-                # accumulate in fp32 and round once, as in the dense
-                # form's product
-                y = torch.bmm(gk[:, None, :], picked)[:, 0]
+            y = _padded(module, xt, idx, pos, keep, gk, cap, dispatch, tp)
 
         if tp is not None and tp.sequence:
             y = C.local_slice(y.reshape(*lead, -1), tp.group, 1)
@@ -355,48 +316,57 @@ def _aux(logits, probs, idx, keep, e, group):
     }
 
 
-def _expert_parallel(module, xt, idx, pos, keep, gk, cap, dispatch, tp):
-    """This rank's experts on their slots, the combine summed over
-    'model'.  The replicated tokens and gates enter through ``copy_to``
-    (their gradients from the local experts are summed over the ranks)."""
-    e, t, d = module.num_experts, xt.shape[0], xt.shape[1]
-    k = idx.shape[1]
+def _padded(module, xt, idx, pos, keep, gk, cap, dispatch, tp):
+    """The padded path: this rank's ``El`` experts (all ``E`` without expert
+    parallelism) on an (El, C, D) buffer of their slots, run as one batched
+    product pair.  ``'gather'`` writes each kept assignment's token into its
+    own (expert, queue) cell of an (El·C + 1, D) buffer by an indexed
+    assignment (the cells are unique, so no atomics and the same bits every
+    run; dropped assignments and other ranks' experts all land in the spare
+    last row, which is cut off) and gathers the outputs back (the spare row
+    reads 0); ``'dense'`` is the one-hot (T, El, C) einsum form.  Under
+    expert parallelism the replicated tokens and gates enter through
+    ``copy_to`` (their gradients from the local experts are summed over the
+    ranks) and the combine is summed over 'model'."""
+    e, (t, d), k = module.num_experts, xt.shape, idx.shape[1]
     el = module.experts.w12.weight.shape[0]                  # local experts
-    lo = tp.rank * el
-    dt = xt.dtype
-    x_in = xt if tp.sequence else C.copy_to(xt, tp.group)
-    g_in = gk if tp.sequence else C.copy_to(gk, tp.group)
-    reduce = C.all_reduce if tp.sequence else C.reduce_from
-    if dispatch == 'dense':
-        with annotate('pm.moe.dispatch'):
+    lo, dt, x_in, g_in = 0, xt.dtype, xt, gk
+    if tp is not None:
+        lo = tp.rank * el
+        if not tp.sequence:
+            x_in, g_in = C.copy_to(xt, tp.group), C.copy_to(gk, tp.group)
+    with annotate('pm.moe.dispatch'):
+        if dispatch == 'dense':
             pos_oh = F.one_hot(torch.where(keep, pos, cap),
                                cap + 1)[..., :cap]
             sel = F.one_hot(idx, e).to(dt)[..., lo:lo + el]  # (T, k, El)
-            pos_oh = pos_oh.to(dt)
+            pos_oh = pos_oh.to(dt)                           # (T, k, C)
             disp = torch.einsum('tke,tkc->tec', sel * keep[..., None].to(dt),
                                 pos_oh)
             comb = torch.einsum('tke,tkc->tec', g_in[..., None] * sel,
                                 pos_oh)
             expert_in = torch.einsum('tec,td->ecd', disp, x_in)
-        with annotate('pm.moe.experts'):
-            expert_out = module.experts(expert_in)
-        with annotate('pm.moe.combine'):
-            y = reduce(torch.einsum('tec,ecd->td', comb, expert_out),
-                       tp.group)
-    else:
-        with annotate('pm.moe.dispatch'):
+        else:
             mine = keep & (idx >= lo) & (idx < lo + el)
             cell = torch.where(mine, (idx - lo) * cap + pos,
                                el * cap).reshape(-1)
             x_rep = x_in[:, None, :].expand(t, k, d).reshape(t * k, d)
             buf = torch.index_put(x_in.new_zeros(el * cap + 1, d), (cell,),
                                   x_rep)
-        with annotate('pm.moe.experts'):
-            expert_out = module.experts(buf[:-1].view(el, cap, d))
-        with annotate('pm.moe.combine'):
+            expert_in = buf[:-1].view(el, cap, d)
+    with annotate('pm.moe.experts'):
+        expert_out = module.experts(expert_in)               # (El, C, Do)
+    with annotate('pm.moe.combine'):
+        if dispatch == 'dense':
+            y = torch.einsum('tec,ecd->td', comb, expert_out)
+        else:
             out = F.pad(expert_out.reshape(el * cap, -1), (0, 0, 0, 1))
             picked = out[cell].view(t, k, -1)
-            y = reduce(torch.bmm(g_in[:, None, :], picked)[:, 0], tp.group)
+            # one (1, k) x (k, Do) product a token: the k terms accumulate
+            # in fp32 and round once, as in the dense form's product
+            y = torch.bmm(g_in[:, None, :], picked)[:, 0]
+        if tp is not None:
+            y = (C.all_reduce if tp.sequence else C.reduce_from)(y, tp.group)
     return y
 
 

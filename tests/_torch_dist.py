@@ -1,7 +1,16 @@
 """Launcher of the port's multi-process tests: ``world`` gloo processes on
 the CPU, one per rank, each running a job of ``_torch_dist_jobs.py`` on the
 inputs the test hands over (a ``torch.save`` file).  A job has its own time
-limit, so a deadlock fails the test instead of eating the run's clock."""
+limit, so a deadlock fails the test instead of eating the run's clock.
+
+Importing it also sets the port tests' CPU-thread rule.  Under pytest-xdist
+each worker runs torch on its share of the cores, ``cpu_count // workers``
+intra-op threads (at least one): with a thread per core in every worker, a
+test of many small calls (``gradcheck``) waits on threads that the other
+workers have descheduled.  Every ``tests/test_torch_*.py`` imports this
+module, and an xdist worker collects every test module before it runs a
+test, so the rule holds from a worker's first test.  Outside xdist nothing
+changes: a run of one file keeps every core."""
 
 import os
 import socket
@@ -15,6 +24,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 JOBS = os.path.join(HERE, '_torch_dist_jobs.py')
+
+if 'PYTEST_XDIST_WORKER_COUNT' in os.environ:
+    torch.set_num_threads(max(
+        1, os.cpu_count() // int(os.environ['PYTEST_XDIST_WORKER_COUNT'])))
 
 
 def free_port():

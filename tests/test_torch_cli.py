@@ -33,6 +33,8 @@ from paintmind_tpu_torch.models import pipeline as tpl
 from paintmind_tpu_torch.scripts import (convert_checkpoint, generate,
                                          train_paintmind, train_vqgan)
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / 'scripts'
 PORT = {'train_vqgan': train_vqgan, 'train_paintmind': train_paintmind,
         'generate': generate, 'convert_checkpoint': convert_checkpoint}

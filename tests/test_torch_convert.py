@@ -36,6 +36,8 @@ from paintmind_tpu_torch.models import pipeline as tpl
 from paintmind_tpu_torch.models import vqmodel as tvm
 from paintmind_tpu_torch.utils.checkpoint import load_flat
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET = os.path.join(REPO, 'paintmind_tpu', 'assets', 'vit_vq_photo.npz')
 

@@ -27,6 +27,8 @@ from paintmind_tpu_torch.utils import datasets as TD
 from paintmind_tpu_torch.utils import wds as twds
 from paintmind_tpu_torch.utils.transform import stage1_transform
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 
 def _write_jpg(path, seed=0, size=(16, 20)):
     os.makedirs(os.path.dirname(path), exist_ok=True)

@@ -30,6 +30,8 @@ from paintmind_tpu_torch.ops import image as timage
 from paintmind_tpu_torch.utils import device_cache as tdc
 from paintmind_tpu_torch.utils import profiling
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 TINY_VQ = {
     'n_embed': 64, 'embed_dim': 8, 'beta': 0.25,
     'enc': {'image_size': 32, 'patch_size': 8, 'dim': 32, 'depth': 1,

@@ -41,6 +41,8 @@ from paintmind_tpu_torch.nn import moe as tmoe
 from paintmind_tpu_torch.nn.mlp import SwiGLU
 from paintmind_tpu_torch.train import steps as tsteps
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 DIM, MLP = 16, 32
 # the JAX side compiled once per shape: op-by-op dispatch costs more here
 j_moe_swiglu = jax.jit(jmoe.moe_swiglu, static_argnames=(

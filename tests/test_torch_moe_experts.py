@@ -19,6 +19,8 @@ from paintmind_tpu_torch.nn import moe as tmoe
 from paintmind_tpu_torch.ops import moe_experts as me
 from paintmind_tpu_torch.utils import profiling
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 DIM, MLP = 16, 96   # SwiGLU hidden 64: K5a's 144-column tile is ragged
 
 

@@ -29,6 +29,8 @@ from paintmind_tpu_torch.nn import transformer as ttr
 from paintmind_tpu_torch.utils import profiling
 from paintmind_tpu_torch.utils.checkpoint import load_flat
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 TOL = 1e-5
 
 

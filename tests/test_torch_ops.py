@@ -26,6 +26,8 @@ from paintmind_tpu_torch.ops import flash_attention as tfa
 from paintmind_tpu_torch.ops import sampling as tsm
 from paintmind_tpu_torch.ops import vq_lookup as tvq
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 
 @pytest.fixture
 def interpret_mode():

@@ -16,6 +16,8 @@ from paintmind_tpu_torch import optim as toptim
 from paintmind_tpu_torch.utils.trainer import _micro_schedule, \
     masked_p_generator
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 SHAPES = {'w': (7, 5), 'b': (5,), 'e': (3, 4, 2)}
 
 

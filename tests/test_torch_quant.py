@@ -29,6 +29,8 @@ from paintmind_tpu_torch.models import pipeline as tpl
 from paintmind_tpu_torch.nn import quant as tq
 from paintmind_tpu_torch.nn.core import Linear
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 SMALL_VQ = {
     'n_embed': 64, 'embed_dim': 8, 'beta': 0.25,
     'enc': {'image_size': 32, 'patch_size': 8, 'dim': 32, 'depth': 1,

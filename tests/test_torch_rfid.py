@@ -29,6 +29,8 @@ from paintmind_tpu_torch.convert.from_jax import load_inception_params
 from paintmind_tpu_torch.models import inception as tinc
 from paintmind_tpu_torch.utils import metrics as tmetrics
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 TINY_VQ = {
     'n_embed': 64, 'embed_dim': 8, 'beta': 0.25,
     'enc': {'image_size': 32, 'patch_size': 8, 'dim': 32, 'depth': 1,

@@ -32,6 +32,8 @@ from paintmind_tpu_torch.ops import moe_experts as me
 from paintmind_tpu_torch.ops.rope import norm_rope, norm_rope_plain
 from paintmind_tpu_torch.utils import profiling
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, 'benchmark')
 if BENCH not in sys.path:

@@ -40,6 +40,8 @@ from paintmind_tpu_torch.serving import (EngineOverloaded, GenerateRequest,
                                          ReconstructRequest, make_server)
 from paintmind_tpu_torch.serving.engine import _bucket, fold_seeds
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 SMALL_VQ = {
     'n_embed': 64, 'embed_dim': 8, 'beta': 0.25,
     'enc': {'image_size': 32, 'patch_size': 8, 'dim': 32, 'depth': 1,

@@ -29,6 +29,8 @@ from paintmind_tpu_torch.models import clip as tclip
 from paintmind_tpu_torch.models import pipeline as tpl
 from paintmind_tpu_torch.models import t5 as tt5
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 J_T5 = jt5.T5Config(vocab_size=100, d_model=64, d_kv=16, d_ff=96,
                     num_layers=2, num_heads=4, rel_buckets=16,
                     rel_max_distance=32)

@@ -24,6 +24,8 @@ from paintmind_tpu_torch.serving.engine import _nearest_rank
 from paintmind_tpu_torch.train import steps as tsteps
 from paintmind_tpu_torch.utils import profiling
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 TINY_VQ = {
     'n_embed': 64, 'embed_dim': 8, 'beta': 0.25,
     'enc': {'image_size': 32, 'patch_size': 8, 'dim': 32, 'depth': 1,

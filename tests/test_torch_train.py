@@ -36,6 +36,8 @@ from paintmind_tpu_torch.train import steps as tsteps
 from paintmind_tpu_torch.utils import data as tdata
 from paintmind_tpu_torch.utils import trainer as ttrainer
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 SMALL_VQ = {
     'n_embed': 64, 'embed_dim': 8, 'beta': 0.25,
     'enc': {'image_size': 32, 'patch_size': 8, 'dim': 32, 'depth': 2,

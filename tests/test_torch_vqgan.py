@@ -46,6 +46,8 @@ from paintmind_tpu_torch.models import vqmodel as tvm
 from paintmind_tpu_torch.train import steps as tsteps
 from paintmind_tpu_torch.utils import metrics as tmetrics
 
+import _torch_dist  # noqa: F401  (the CPU-thread rule under xdist)
+
 SMALL_VQ = {
     'n_embed': 64, 'embed_dim': 8, 'beta': 0.25,
     'enc': {'image_size': 32, 'patch_size': 8, 'dim': 32, 'depth': 2,
